@@ -1,0 +1,2 @@
+from repro_torch.configs.base import (ARCH_IDS, ModelConfig, get_config,
+                                      get_smoke_config)
