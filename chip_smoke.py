@@ -14,9 +14,11 @@ Phases, in order; any failure exits non-zero with its traceback:
              ragged shapes and a GQA shape; decode also with NaN past lengths.
 4. parity  - gemma-2b at full width in f32: prefill + 4 decode steps through
              the kernels (attention_impl="pallas") and through plain PyTorch
-             ("xla"), every layer and the logits compared on the same input,
-             relative to max |reference|; the launch counters must rise by
-             n_layers per prefill and per decode step.
+             ("xla"): every layer and the logits on the same input, and the
+             entry points at a cut depth, relative to max |reference|; at
+             full depth the entry points' drift beside a control that
+             perturbs the plain route's input at f32 rounding.  The launch
+             counters must rise by n_layers per prefill and per decode step.
 5. serve   - ``repro_torch.launch.serve.main`` at full width in bf16 (16
              requests, 8 slots, 512-token prompts, 32 new tokens each); every
              request must complete and every prefill/decode must have gone
@@ -45,7 +47,11 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # tests/test_kernels.py::_tol
-PARITY_REL_TOL = 1e-5  # full-width f32, same input: max error / max |reference|
+PARITY_REL_TOL = 1e-5  # full-width f32: max error / max |reference|
+# layers of the cut model whose entry points are held to PARITY_REL_TOL: at 2,
+# an f32 rounding of the input already grows to half that tolerance
+PARITY_DEPTH = 1
+CHAOS_FACTOR = 10  # most kernel-route drift per unit of the control's drift
 
 SERVE_ARGS = ["--arch", "gemma-2b", "--full-width", "--attention-impl", "pallas",
               "--device", "cuda", "--requests", "16", "--max-batch", "8",
@@ -192,15 +198,14 @@ def phase_kernels() -> dict:
     """Each kernel against its plain version; returns the worst error per kernel."""
     import torch
 
-    from repro_torch.kernels.decode_attention import decode_attention_bmhd
-    from repro_torch.kernels.flash_attention import flash_attention_bshd
+    from repro_torch.kernels import ops
 
     worst = {"flash_attention": 0.0, "decode_attention": 0.0}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).replace("torch.", "")
         for shape in [(1, 512, 8, 1, 256), (1, 77, 8, 1, 256), (2, 300, 8, 2, 128)]:
             q, k, v = _flash_inputs(*shape, dtype, seed=sum(shape))
-            got = flash_attention_bshd(q, k, v)
+            got = ops.flash_attention(q, k, v)
             torch.cuda.synchronize()
             err = check_close(f"flash_attention {name} {shape}", got, flash_plain(q, k, v), name)
             worst["flash_attention"] = max(worst["flash_attention"], err)
@@ -210,14 +215,14 @@ def phase_kernels() -> dict:
                                ((3, 300, 8, 2, 128), [300, 129, 33])]:
             q, ck, cv, lens = _decode_inputs(*shape, dtype, sum(shape), lengths)
             want = decode_plain(q, ck, cv, lens)
-            got = decode_attention_bmhd(q, ck, cv, lens)
+            got = ops.decode_attention(q, ck, cv, lens)
             torch.cuda.synchronize()
             err = check_close(f"decode_attention {name} {shape}", got, want, name)
             # NaN in every slot past lengths must not reach the output
             mask = torch.arange(shape[1], device="cuda")[None, :] >= lens[:, None]
             ck[mask] = float("nan")
             cv[mask] = float("nan")
-            poisoned = decode_attention_bmhd(q, ck, cv, lens)
+            poisoned = ops.decode_attention(q, ck, cv, lens)
             torch.cuda.synchronize()
             if not torch.equal(poisoned, got):
                 raise AssertionError(f"decode_attention {name} {shape}: NaN past lengths "
@@ -229,16 +234,45 @@ def phase_kernels() -> dict:
     return worst
 
 
-def _check_rel(what: str, got, want) -> float:
-    """max |got - want| / max |want|, which must stay within PARITY_REL_TOL."""
+def _rel(got, want) -> float:
+    """max |got - want| / max |want|; raises if got is misshapen or not finite."""
     import torch
 
     if got.shape != want.shape or not bool(torch.isfinite(got).all()):
-        raise AssertionError(f"{what}: {tuple(got.shape)} vs {tuple(want.shape)}, or not finite")
-    rel = max_err(got, want) / float(want.abs().max())
+        raise AssertionError(f"{tuple(got.shape)} vs {tuple(want.shape)}, or not finite")
+    return max_err(got, want) / float(want.abs().max())
+
+
+def _check_rel(what: str, got, want) -> float:
+    """_rel(got, want), which must stay within PARITY_REL_TOL."""
+    rel = _rel(got, want)
     if rel > PARITY_REL_TOL:
         raise AssertionError(f"{what}: max_abs_err / max |want| = {rel:.3e} > {PARITY_REL_TOL}")
     return rel
+
+
+def _nudged(params: dict) -> dict:
+    """params with layer 0's pre-attention norm scale moved one f32 step up
+    (1 -> 1 + 2**-23): the model's input perturbed at f32 rounding.  Every
+    other tensor is shared with ``params``."""
+    import torch
+
+    scale = params["blocks"]["ln_attn"]["scale"].clone()
+    scale[0] = torch.nextafter(scale[0], torch.full_like(scale[0], float("inf")))
+    blocks = {**params["blocks"], "ln_attn": {**params["blocks"]["ln_attn"], "scale": scale}}
+    return {**params, "blocks": blocks}
+
+
+def _entry_points(params: dict, cfg, prompt, steps, max_len: int) -> list:
+    """Logits of prefill and of each decode step, through the entry points."""
+    from repro_torch.models import decoding as DEC
+
+    out, cache = DEC.prefill(params, cfg, {"tokens": prompt}, max_len=max_len)
+    got = [out]
+    for tok in steps:
+        out, cache = DEC.decode_step(params, cfg, cache, tok)
+        got.append(out)
+    return got
 
 
 def phase_parity() -> None:
@@ -246,14 +280,22 @@ def phase_parity() -> None:
 
     Under the reference's init (fan-in of wq/wk taken from the head dims, so
     q and k entries have std ~16 and ~45) the random full-width model's
-    attention scores are in the hundreds, and softmax over them amplifies a
-    difference in a layer's input layer after layer: two f32 routes that
-    agree to ~1e-7 within every layer drift apart by O(1) over 18 layers.  So
-    the routes are compared layer by layer on the same input (the plain
-    route's stream and cache), through all 18 layers, at prefill and at each of
-    4 decode steps, down to the logits; the entry points prefill/decode_step
-    run the kernel route end to end for the launch counts and finite logits,
-    and their end-to-end drift is printed, not held to a tolerance.
+    attention scores are in the hundreds, and the model is chaotic in f32:
+    a rounding-level change of its input grows layer after layer.  So the
+    kernel route is held against the plain route in three ways:
+
+    a. layer by layer on the same input (the plain route's stream and cache),
+       through all 18 layers, at prefill and at each of 4 decode steps, down
+       to the logits, within PARITY_REL_TOL;
+    b. end to end through the entry points prefill/decode_step, with the
+       model cut to PARITY_DEPTH layers, within PARITY_REL_TOL;
+    c. end to end through the entry points at full depth, beside a control:
+       the plain route with its input perturbed at f32 rounding (``_nudged``).
+       The kernel route may drift no more than CHAOS_FACTOR times as far as
+       the control does.
+    Between a and b, each route and the control run on their own streams, and
+    the prefill logits after every depth are held to the rule of c, so the
+    run shows where the chaos sets in.
     """
     import dataclasses
 
@@ -264,7 +306,7 @@ def phase_parity() -> None:
     from repro_torch.models import decoding as DEC
     from repro_torch.models import layers as L
     from repro_torch.models import transformer as TF
-    from repro_torch.models.params import count_params
+    from repro_torch.models.params import count_params, tree_map
     from repro_torch.steps import init_model
 
     cfg = get_config("gemma-2b", dtype="float32")
@@ -280,36 +322,28 @@ def phase_parity() -> None:
     prompt = torch.randint(1, cfg.vocab, (b, s), generator=g, device="cuda")
     steps = torch.randint(1, cfg.vocab, (n_dec, b, 1), generator=g, device="cuda")
     n = cfg.n_layers
+    nudged = _nudged(params)
+    routes = {"kernel": (cp, params), "plain": (cx, params), "control": (cx, nudged)}
 
     def logits_of(x):
         return L.unembed(params["embed"], L.apply_norm(params["ln_f"], x[:, -1:], cfg.norm), cfg)
 
-    with torch.no_grad():
-        # the entry points, end to end on each route
-        e2e = {}
-        for c in (cp, cx):
-            ops.reset_launches()
-            out, cache = DEC.prefill(params, c, {"tokens": prompt}, max_len=max_len)
-            got = [out]
-            for i in range(n_dec):
-                out, cache = DEC.decode_step(params, c, cache, steps[i])
-                got.append(out)
-            if c is cp and ops.launches() != {"flash_attention": n, "decode_attention": n * n_dec}:
-                raise AssertionError(f"kernel route launches {ops.launches()}, want {n} "
-                                     f"per prefill and {n} per decode step")
-            for o in got:
-                if o.shape != (b, 1, cfg.vocab) or not bool(torch.isfinite(o).all()):
-                    raise AssertionError(f"{c.attention_impl} logits {tuple(o.shape)} not finite")
-            e2e[c.attention_impl] = got
-        drift = max(max_err(k_, x_) / float(x_.abs().max())
-                    for k_, x_ in zip(e2e["pallas"], e2e["xla"]))
-        log("parity", f"entry points: kernel route launched {n} flash_attention per prefill and "
-            f"{n} decode_attention per decode step; end-to-end drift between the routes "
-            f"(max err / max |logit|) {drift:.3e}, not held to a tolerance (see docstring)")
-        del e2e, cache
+    def drift(got, want):
+        return max(_rel(o, w) for o, w in zip(got, want))
 
-        # layer by layer on the same input, prefill then decode
+    def run_entry_points(name, c, prm, depth):
+        ops.reset_launches()
+        got = _entry_points(prm, c, prompt, steps, max_len)
+        want = {"flash_attention": depth, "decode_attention": depth * n_dec}
+        if name == "kernel" and ops.launches() != want:
+            raise AssertionError(f"kernel route launches {ops.launches()}, want {depth} "
+                                 f"per prefill and {depth} per decode step")
+        return got
+
+    with torch.no_grad():
+        # a. layer by layer on the same input, prefill then decode
         x, pos, _ = TF._embed_inputs(params, cfg, {"tokens": prompt})
+        embed_rms = float(x.square().mean().sqrt())
         cache = DEC.init_cache(cfg, b, max_len, device="cuda")
         worst = 0.0
         for li in range(n):
@@ -318,9 +352,12 @@ def phase_parity() -> None:
             x, (k, v) = TF._apply_block(p, x, pos, cx)
             worst = max(worst, _check_rel(f"prefill layer {li}", xk, x))
             cache["k"][li, :, :s], cache["v"][li, :, :s] = k, v
+            if li == 0:
+                layer0_rms = float(x.square().mean().sqrt())
         rel = _check_rel("prefill logits", logits_of(xk), logits_of(x))
-        log("parity", f"prefill: worst layer output err / max |x| {worst:.3e}; logits err / "
-            f"max |logit| {rel:.3e} (tol {PARITY_REL_TOL}) ok")
+        log("parity", f"a. prefill, same input: worst layer output err / max |x| {worst:.3e}; "
+            f"logits err / max |logit| {rel:.3e} (tol {PARITY_REL_TOL}) ok; rms of the "
+            f"embedded input {embed_rms:.2f}, of the stream after layer 0 {layer0_rms:.2f}")
         cache["pos"].fill_(s)
         for i in range(n_dec):
             x = L.embed_tokens(params["embed"], steps[i], cfg)
@@ -333,10 +370,55 @@ def phase_parity() -> None:
                 x = DEC._decode_block(p, x, cache["k"][li], cache["v"][li], pos, cx)
                 worst = max(worst, _check_rel(f"decode {i + 1} layer {li}", xk, x))
             rel = _check_rel(f"decode {i + 1} logits", logits_of(xk), logits_of(x))
-            log("parity", f"decode {i + 1}: worst layer output err / max |x| {worst:.3e}; logits "
-                f"err / max |logit| {rel:.3e} (tol {PARITY_REL_TOL}) ok")
+            log("parity", f"a. decode {i + 1}, same input: worst layer output err / max |x| "
+                f"{worst:.3e}; logits err / max |logit| {rel:.3e} (tol {PARITY_REL_TOL}) ok")
             cache["pos"] += 1
-    del params, cache
+        del cache
+
+        # each route on its own stream; the prefill logits after every depth
+        x0, pos, _ = TF._embed_inputs(params, cfg, {"tokens": prompt})
+        xs = dict.fromkeys(routes, x0)
+        curve = []
+        for li in range(n):
+            for name, (c, prm) in routes.items():
+                xs[name], _ = TF._apply_block(TF.layer_params(prm["blocks"], li), xs[name], pos, c)
+            want = logits_of(xs["plain"])
+            dk, dc = (_rel(logits_of(xs["kernel"]), want),
+                      _rel(logits_of(xs["control"]), want))
+            if dk > max(CHAOS_FACTOR * dc, PARITY_REL_TOL):
+                raise AssertionError(f"prefill at depth {li + 1}: the kernel route drifts "
+                                     f"{dk:.3e}, more than {CHAOS_FACTOR} x the control's {dc:.3e}")
+            curve.append((dk, dc))
+        log("parity", "prefill logits drift from the plain route by depth, kernel route / "
+            "control: " + ", ".join(f"{i + 1}: {dk:.1e}/{dc:.1e}"
+                                    for i, (dk, dc) in enumerate(curve))
+            + f"; within {CHAOS_FACTOR} x the control at every depth, ok")
+        del xs
+
+        # b. the entry points with the model cut to PARITY_DEPTH layers
+        m = PARITY_DEPTH
+        cut = {**params, "blocks": tree_map(lambda t: t[:m], params["blocks"])}
+        got = {name: run_entry_points(name, dataclasses.replace(c, n_layers=m), cut, m)
+               for name, c in (("kernel", cp), ("plain", cx))}
+        for i, (o, w) in enumerate(zip(got["kernel"], got["plain"])):
+            _check_rel(f"entry points at depth {m}, output {i}", o, w)
+        log("parity", f"b. entry points at depth {m}: prefill + {n_dec} decode steps, logits "
+            f"err / max |logit| {drift(got['kernel'], got['plain']):.3e} (tol "
+            f"{PARITY_REL_TOL}) ok; {m} flash_attention per prefill, {m} decode_attention "
+            "per decode step")
+
+        # c. the entry points at full depth, beside the control
+        got = {name: run_entry_points(name, c, prm, n) for name, (c, prm) in routes.items()}
+        dk, dc = drift(got["kernel"], got["plain"]), drift(got["control"], got["plain"])
+        top = float(got["plain"][0].abs().max())
+        if dk > max(CHAOS_FACTOR * dc, PARITY_REL_TOL):
+            raise AssertionError(f"entry points at depth {n}: the kernel route drifts {dk:.3e}, "
+                                 f"more than {CHAOS_FACTOR} x the control's {dc:.3e}")
+        log("parity", f"c. entry points at depth {n}: logits drift from the plain route (max "
+            f"err / max |logit|; prefill max |logit| {top:.1f}): kernel route {dk:.3e}, "
+            f"control (plain route, input nudged one f32 step) {dc:.3e}; within "
+            f"{CHAOS_FACTOR} x the control, ok")
+    del params, nudged, routes, cut, got
     torch.cuda.empty_cache()
 
 
@@ -363,7 +445,7 @@ def phase_serve() -> dict:
         f"{summary['tokens_per_s']} tokens/s; latency p50 {summary['latency_p50_s']:.3f}s "
         f"p99 {summary['latency_p99_s']:.3f}s; {summary['prefills']} prefills, "
         f"{summary['decode_ticks']} decode ticks")
-    log("serve", f"launches on the main path: {launches} "
+    log("serve", f"wrapper calls (launches) on the main path: {launches} "
         f"({launches['flash_attention'] / n_req} and {launches['decode_attention'] / n_req} "
         "per request)")
     return {"summary": summary, "launches": launches, "requests": n_req}
@@ -373,8 +455,7 @@ def phase_timing(worst: dict, serve: dict) -> list:
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels.decode_attention import decode_attention_bmhd
-    from repro_torch.kernels.flash_attention import flash_attention_bshd
+    from repro_torch.kernels import ops
 
     def measure(fns):  # timed at once: the callables close over this block's tensors
         return {"dev": {key: device_ms(fn) for key, fn in fns.items()},
@@ -395,7 +476,7 @@ def phase_timing(worst: dict, serve: dict) -> list:
     rows.append(dict(
         name="flash_attention", source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:34",
-        **measure({"ms": lambda: flash_attention_bshd(q, k, v),
+        **measure({"ms": lambda: ops.flash_attention(q, k, v),
                    "plain_ms": lambda: flash_plain(q, k, v),
                    "library_ms": lambda: F.scaled_dot_product_attention(
                        qt, kt, vt, is_causal=True, enable_gqa=True)}),
@@ -415,7 +496,7 @@ def phase_timing(worst: dict, serve: dict) -> list:
     rows.append(dict(
         name="decode_attention", source="src/repro_torch/kernels/csrc/decode_attention.cu",
         replaces="src/repro/kernels/decode_attention.py:29",
-        **measure({"ms": lambda: decode_attention_bmhd(q, ck, cv, lens),
+        **measure({"ms": lambda: ops.decode_attention(q, ck, cv, lens),
                    "plain_ms": lambda: decode_plain(q, ck, cv, lens),
                    "library_ms": lambda: F.scaled_dot_product_attention(
                        qt, kt, vt, attn_mask=mask, enable_gqa=True)}),
@@ -433,9 +514,13 @@ def phase_timing(worst: dict, serve: dict) -> list:
             f"per call, host included: kernel {call['ms'] * 1e3:.2f} us, plain "
             f"{call['plain_ms'] * 1e3:.2f} us, library {call['library_ms'] * 1e3:.2f} us; bound "
             f"{bound_ms * 1e3:.3f} us ({bound_by}: {r['nbytes']} B, {r['flops']:.4g} FLOP), "
-            f"{launches / serve['requests']} launches per request")
+            f"{launches / serve['requests']} wrapper calls per request, "
+            f"{ops.GRIDS_PER_CALL[r['name']]} grid(s) each")
+        # launches: wrapper calls on the main path; grids_per_call: the
+        # __global__ kernels each call launches
         out.append({"name": r["name"], "route": "cuda", "source": r["source"],
                     "replaces": r["replaces"], "launches": launches,
+                    "grids_per_call": ops.GRIDS_PER_CALL[r["name"]],
                     "max_abs_err": worst[r["name"]], "ms": dev["ms"], "plain_ms": dev["plain_ms"],
                     "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": dev["library_ms"],
                     "call_ms": call["ms"]})
@@ -470,10 +555,9 @@ def phase_breakdown() -> None:
     events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
     busy_us = sum(e.self_device_time_total for e in events)
     n_kernels = sum(e.count for e in events)
-    if busy_us == 0:
-        log("breakdown", f"decode tick (8 slots) {wall * 1e3:.2f} ms wall; the profiler saw no "
-            "device time: device busy not measured")
-        return
+    if busy_us <= 0:
+        raise RuntimeError(f"decode tick (8 slots) {wall * 1e3:.2f} ms wall: the profiler saw "
+                           "no device time")
     log("breakdown", f"decode tick (8 slots) {wall * 1e3:.2f} ms wall, device busy "
         f"{busy_us / 1e3:.2f} ms (idle share {1 - busy_us / 1e3 / (wall * 1e3):.3f}), "
         f"{n_kernels} device ops per tick")
