@@ -5,35 +5,46 @@
 
 Phases, in order; any failure exits non-zero with its traceback:
 
-1. device  - require CUDA and an sm_90 card; print versions and
-             ``nvidia-smi --query-gpu=name,power.limit``.
-2. build   - compile the kernels in ``src/repro_torch/kernels/csrc`` with nvcc
-             for sm_90a (one process per source, in parallel).
-3. kernels - each CUDA kernel against its plain PyTorch version on the card,
-             in f32 (tol 2e-5) and bf16 (tol 2e-2), at the model's shapes,
-             ragged shapes and a GQA shape; decode also with NaN past lengths.
-4. parity  - gemma-2b at full width in f32: prefill + 4 decode steps through
-             the kernels (attention_impl="pallas") and through plain PyTorch
-             ("xla"): every layer and the logits on the same input, and the
-             entry points at a cut depth, relative to max |reference|; at
-             full depth the entry points' drift beside a control that
-             perturbs the plain route's input at f32 rounding.  The launch
-             counters must rise by n_layers per prefill and per decode step.
-5. serve   - ``repro_torch.launch.serve.main`` at full width in bf16 (16
-             requests, 8 slots, 512-token prompts, 32 new tokens each); every
-             request must complete and every prefill/decode must have gone
-             through the kernels.
-6. timing  - each kernel at the serve shapes: its device time (profiler) and
-             time per call (CUDA events, host launch cost included), the
-             same for its plain version and for scaled_dot_product_attention
-             (a yardstick the port never calls), and the roofline bound; then
-             a profile of one decode tick.
+1. device    - require CUDA and an sm_90 card; print versions and
+               ``nvidia-smi --query-gpu=name,power.limit``.
+2. build     - compile the kernels in ``src/repro_torch/kernels/csrc`` with
+               nvcc for sm_90a (one process per source, in parallel).
+3. kernels   - each CUDA kernel against its plain PyTorch version on the card:
+               attention in f32 (tol 2e-5) and bf16 (tol 2e-2) at gemma's and
+               hymba's head shapes, ragged shapes and GQA, decode also with NaN
+               past lengths; the scans (K3, K4) in f32 (tol 2e-5) at hymba's
+               serve prefill shape, a ragged S and B=3, and with identity
+               steps at the end, which must leave h_last as it was.
+4. parity    - gemma-2b, then hymba-1.5b (both prefill scans), at full width
+               in f32: prefill + 4 decode steps through the kernels
+               (attention_impl="pallas") and through plain PyTorch ("xla",
+               the scans through their plain versions): every layer and the
+               logits on the same input, and the entry points at a cut depth,
+               relative to max |reference|; after every depth and at full
+               depth, the drift beside a control that perturbs the plain
+               route's input at f32 rounding.  The launch counters must rise
+               by n_layers per prefill and per decode step, for each kernel on
+               the route, and stay at 0 on the plain route.
+5. serve     - ``repro_torch.launch.serve.main`` at full width in bf16 (16
+               requests, 8 slots, 512-token prompts, 32 new tokens each):
+               gemma-2b (K1, K2), hymba-1.5b with the default scan (K1, K4,
+               K2) and with ``--scan-impl chunked`` (K1, K3, K2); every
+               request must complete and every prefill/decode must have gone
+               through the kernels (counters set to 0 before each run).
+6. timing    - each kernel at its serve shapes: its device time (profiler)
+               and time per call (CUDA events, host launch cost included),
+               the same for its plain version and, for attention, for
+               scaled_dot_product_attention (a yardstick the port never
+               calls), and the roofline bound.
+7. breakdown - profiles of gemma-2b's decode tick and of hymba-1.5b's
+               prefill and decode tick in the bf16 serve engine.
 
 The last three lines are the card's name and power limit, one JSON object
 with the per-kernel numbers, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -46,16 +57,34 @@ SRC = ROOT / "src"
 # H100 SXM published peaks (NVIDIA data sheet), for the roofline bound
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+F32_FLOPS = 67e12  # outside the tensor cores
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # tests/test_kernels.py::_tol
 PARITY_REL_TOL = 1e-5  # full-width f32: max error / max |reference|
 # layers of the cut model whose entry points are held to PARITY_REL_TOL: at 2,
-# an f32 rounding of the input already grows to half that tolerance
+# an f32 rounding of the input already grows to half that tolerance (gemma)
 PARITY_DEPTH = 1
 CHAOS_FACTOR = 10  # most kernel-route drift per unit of the control's drift
 
-SERVE_ARGS = ["--arch", "gemma-2b", "--full-width", "--attention-impl", "pallas",
-              "--device", "cuda", "--requests", "16", "--max-batch", "8",
-              "--prefill-len", "512", "--max-len", "1024", "--max-new", "32", "--json"]
+SERVE_COMMON = ["--full-width", "--attention-impl", "pallas", "--device", "cuda",
+                "--requests", "16", "--max-batch", "8", "--prefill-len", "512",
+                "--max-len", "1024", "--max-new", "32", "--json"]
+# (label, launcher arguments); each is one main path
+SERVE_RUNS = [
+    ("gemma-2b", ["--arch", "gemma-2b"] + SERVE_COMMON),
+    ("hymba-1.5b assoc", ["--arch", "hymba-1.5b"] + SERVE_COMMON),
+    ("hymba-1.5b chunked", ["--arch", "hymba-1.5b", "--scan-impl", "chunked"] + SERVE_COMMON),
+]
+# the serve run whose counts stand in the kernels JSON as each kernel's launches
+MAIN_PATH = {"flash_attention": "gemma-2b", "decode_attention": "gemma-2b",
+             "ssm_scan": "hymba-1.5b assoc", "ssm_scan_fused": "hymba-1.5b chunked"}
+# each kernel's source under src/repro_torch/kernels/csrc, and the Pallas
+# kernel body it replaces
+SOURCES = {"flash_attention": "flash_attention.cu", "decode_attention": "decode_attention.cu",
+           "ssm_scan": "ssm_scan.cu", "ssm_scan_fused": "ssm_scan.cu"}
+REPLACES = {"flash_attention": "src/repro/kernels/flash_attention.py:34",
+            "decode_attention": "src/repro/kernels/decode_attention.py:29",
+            "ssm_scan": "src/repro/kernels/ssm_scan.py:25",
+            "ssm_scan_fused": "src/repro/kernels/ssm_scan.py:54"}
 
 
 def log(phase: str, msg: str) -> None:
@@ -126,6 +155,46 @@ def device_ms(fn, iters: int = 20, warmup: int = 5) -> float:
     return busy_us / iters / 1e3
 
 
+def with_scan(cfg, scan_impl: str):
+    import dataclasses
+
+    return dataclasses.replace(cfg, ssm=dataclasses.replace(cfg.ssm, scan_impl=scan_impl))
+
+
+def expected_launches(cfg, prefills: int, decode_steps: int) -> dict:
+    """Wrapper calls the kernel route of ``cfg`` makes: one per layer per
+    prefill for K1 (and the hybrid's scan, K4 or K3), one per layer per
+    decode step for K2; 0 for every kernel the route does not use."""
+    from repro_torch.kernels import ops
+
+    want = dict.fromkeys(ops.KERNELS, 0)
+    if cfg.attention_impl != "pallas":
+        return want
+    want["flash_attention"] = cfg.n_layers * prefills
+    want["decode_attention"] = cfg.n_layers * decode_steps
+    if cfg.family == "hybrid":
+        scan = "ssm_scan" if cfg.ssm.scan_impl == "assoc" else "ssm_scan_fused"
+        want[scan] = cfg.n_layers * prefills
+    return want
+
+
+@contextlib.contextmanager
+def plain_scans():
+    """The SSM scans through their plain versions on the card: the plain
+    route's counterpart of attention_impl="xla" (the model picks its scan
+    kernel by ``scan_impl`` alone).  The wrappers are restored on exit."""
+    from repro_torch.kernels import ops, ref
+
+    saved = ops.ssm_scan, ops.ssm_scan_fused
+    ops.ssm_scan = ref.ssm_scan_ref
+    ops.ssm_scan_fused = lambda delta, B, C, x, A: ref.ssm_scan_ref(
+        *ref.ssm_discretize(delta, B, x, A), C)
+    try:
+        yield
+    finally:
+        ops.ssm_scan, ops.ssm_scan_fused = saved
+
+
 def phase_device():
     import torch
 
@@ -180,6 +249,21 @@ def _decode_inputs(b, m, hq, hkv, d, dtype, seed, lengths):
     return q, ck, cv, torch.tensor(lengths, dtype=torch.int32, device="cuda")
 
 
+def _scan_inputs(b, s, di, n, seed):
+    """(delta, B, C, x, A) in f32, distributed as hymba's mixer makes them:
+    delta = softplus(.) > 0, A = -exp(.) < 0, so dA = exp(delta A) in (0, 1)."""
+    import torch
+    import torch.nn.functional as F
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    delta = F.softplus(torch.randn(b, s, di, generator=g, device="cuda"))
+    B = torch.randn(b, s, n, generator=g, device="cuda")
+    C = torch.randn(b, s, n, generator=g, device="cuda")
+    x = torch.randn(b, s, di, generator=g, device="cuda")
+    A = -torch.exp(torch.rand(di, n, generator=g, device="cuda") * 2 - 1)
+    return delta, B, C, x, A
+
+
 def flash_plain(q, k, v):
     from repro_torch.kernels import ref
 
@@ -194,16 +278,70 @@ def decode_plain(q, ck, cv, lengths):
                                     lengths)[:, None]
 
 
+def fused_plain(delta, B, C, x, A):
+    from repro_torch.kernels import ref
+
+    return ref.ssm_scan_ref(*ref.ssm_discretize(delta, B, x, A), C)
+
+
+def _check_scans(worst: dict, shape) -> None:
+    """K4 and K3 against their plain version at ``shape`` = (B,S,di,N)."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    delta, B, C, x, A = _scan_inputs(*shape, seed=sum(shape))
+    dA, dBx = ref.ssm_discretize(delta, B, x, A)
+    y_want, h_want = ref.ssm_scan_ref(dA, dBx, C)
+    for name, out in (("ssm_scan", ops.ssm_scan(dA, dBx, C)),
+                      ("ssm_scan_fused", ops.ssm_scan_fused(delta, B, C, x, A))):
+        torch.cuda.synchronize()
+        err = max(check_close(f"{name} {shape} y", out[0], y_want, "float32"),
+                  check_close(f"{name} {shape} h_last", out[1], h_want, "float32"))
+        worst[name] = max(worst[name], err)
+        log("kernels", f"{name} f32 B,S,di,N={shape}: max_abs_err {err:.3e} over y and h_last "
+            f"(max |y| {float(y_want.abs().max()):.1f}; atol = rtol = 2e-05) ok")
+
+
+def _check_identity_steps(shape, keep: int) -> None:
+    """Identity steps after step ``keep`` (dA = 1, dBx = 0, C = 0 for K4;
+    delta = 0, C = 0 for K3) leave h_last and the earlier y bit for bit as a
+    scan of the first ``keep`` steps gives them, and give y = 0."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    delta, B, C, x, A = _scan_inputs(*shape, seed=7 + sum(shape))
+    dA, dBx = ref.ssm_discretize(delta, B, x, A)
+    short = {"ssm_scan": ops.ssm_scan(dA[:, :keep].contiguous(), dBx[:, :keep].contiguous(),
+                                      C[:, :keep]),
+             "ssm_scan_fused": ops.ssm_scan_fused(delta[:, :keep], B[:, :keep], C[:, :keep],
+                                                  x[:, :keep], A)}
+    dA[:, keep:], dBx[:, keep:], C[:, keep:], delta[:, keep:] = 1.0, 0.0, 0.0, 0.0
+    full = {"ssm_scan": ops.ssm_scan(dA, dBx, C),
+            "ssm_scan_fused": ops.ssm_scan_fused(delta, B, C, x, A)}
+    torch.cuda.synchronize()
+    for name, (y, h) in full.items():
+        y0, h0 = short[name]
+        if not (torch.equal(h, h0) and torch.equal(y[:, :keep], y0) and not bool(y[:, keep:].any())):
+            raise AssertionError(f"{name} {shape}: identity steps after {keep} changed h_last "
+                                 f"or y (max diff {max_err(h, h0):.3e})")
+    log("kernels", f"ssm_scan and ssm_scan_fused B,S,di,N={shape}: identity steps after step "
+        f"{keep} keep h_last and y bit for bit, y = 0 on them; ok")
+
+
 def phase_kernels() -> dict:
     """Each kernel against its plain version; returns the worst error per kernel."""
     import torch
 
     from repro_torch.kernels import ops
 
-    worst = {"flash_attention": 0.0, "decode_attention": 0.0}
+    worst = dict.fromkeys(ops.KERNELS, 0.0)
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).replace("torch.", "")
-        for shape in [(1, 512, 8, 1, 256), (1, 77, 8, 1, 256), (2, 300, 8, 2, 128)]:
+        # gemma's heads (MQA, D=256), ragged S, GQA; hymba's heads (25/5, D=64)
+        for shape in [(1, 512, 8, 1, 256), (1, 77, 8, 1, 256), (2, 300, 8, 2, 128),
+                      (1, 512, 25, 5, 64), (2, 77, 25, 5, 64)]:
             q, k, v = _flash_inputs(*shape, dtype, seed=sum(shape))
             got = ops.flash_attention(q, k, v)
             torch.cuda.synchronize()
@@ -212,7 +350,8 @@ def phase_kernels() -> dict:
             log("kernels", f"flash_attention {name} B,S,Hq,Hkv,D={shape}: max_abs_err {err:.3e} "
                 f"(atol = rtol = {TOL[name]}) ok")
         for shape, lengths in [((8, 1024, 8, 1, 256), [1, 17, 64, 300, 511, 512, 1000, 1024]),
-                               ((3, 300, 8, 2, 128), [300, 129, 33])]:
+                               ((3, 300, 8, 2, 128), [300, 129, 33]),
+                               ((8, 1024, 25, 5, 64), [1, 33, 100, 512, 513, 530, 777, 1024])]:
             q, ck, cv, lens = _decode_inputs(*shape, dtype, sum(shape), lengths)
             want = decode_plain(q, ck, cv, lens)
             got = ops.decode_attention(q, ck, cv, lens)
@@ -231,6 +370,10 @@ def phase_kernels() -> dict:
             log("kernels", f"decode_attention {name} B,M,Hq,Hkv,D={shape} lengths={lengths}: "
                 f"max_abs_err {err:.3e} (atol = rtol = {TOL[name]}); NaN past lengths "
                 "ignored; ok")
+    # the scans take f32 only: hymba's serve prefill, a ragged S with B=3
+    for shape in [(1, 512, 3200, 16), (3, 77, 3200, 16)]:
+        _check_scans(worst, shape)
+    _check_identity_steps((1, 512, 3200, 16), keep=437)
     return worst
 
 
@@ -275,23 +418,26 @@ def _entry_points(params: dict, cfg, prompt, steps, max_len: int) -> list:
     return got
 
 
-def phase_parity() -> None:
-    """Full-width gemma-2b in f32: kernel route ("pallas") vs plain route ("xla").
+def phase_parity(arch: str) -> None:
+    """Full-width ``arch`` in f32: kernel route(s) ("pallas") vs plain route
+    ("xla", and for hymba the scans through their plain versions).  Hymba has
+    two kernel routes, one per prefill scan (K4 for "assoc", K3 for
+    "chunked").
 
     Under the reference's init (fan-in of wq/wk taken from the head dims, so
-    q and k entries have std ~16 and ~45) the random full-width model's
+    q and k entries have a std far above 1) the random full-width model's
     attention scores are in the hundreds, and the model is chaotic in f32:
-    a rounding-level change of its input grows layer after layer.  So the
+    a rounding-level change of its input grows layer after layer.  So each
     kernel route is held against the plain route in three ways:
 
     a. layer by layer on the same input (the plain route's stream and cache),
-       through all 18 layers, at prefill and at each of 4 decode steps, down
+       through every layer, at prefill and at each of 4 decode steps, down
        to the logits, within PARITY_REL_TOL;
     b. end to end through the entry points prefill/decode_step, with the
        model cut to PARITY_DEPTH layers, within PARITY_REL_TOL;
     c. end to end through the entry points at full depth, beside a control:
        the plain route with its input perturbed at f32 rounding (``_nudged``).
-       The kernel route may drift no more than CHAOS_FACTOR times as far as
+       A kernel route may drift no more than CHAOS_FACTOR times as far as
        the control does.
     Between a and b, each route and the control run on their own streams, and
     the prefill logits after every depth are held to the rule of c, so the
@@ -309,21 +455,31 @@ def phase_parity() -> None:
     from repro_torch.models.params import count_params, tree_map
     from repro_torch.steps import init_model
 
-    cfg = get_config("gemma-2b", dtype="float32")
+    cfg = get_config(arch, dtype="float32")
     cp = dataclasses.replace(cfg, attention_impl="pallas")
     cx = dataclasses.replace(cfg, attention_impl="xla")
+    if cfg.family == "hybrid":
+        kernel = {"kernel assoc": with_scan(cp, "assoc"), "kernel chunked": with_scan(cp, "chunked")}
+    else:
+        kernel = {"kernel": cp}
     b, s, max_len, n_dec = 2, 128, 256, 4
     t0 = time.perf_counter()
     defs, params = init_model(cfg, seed=0, max_seq=max_len, device="cuda")
     torch.cuda.synchronize()
-    log("parity", f"gemma-2b f32, {count_params(defs) / 1e9:.3f}B params, {cfg.n_layers} layers, "
-        f"init {time.perf_counter() - t0:.1f}s; prompt B={b} S={s}, {n_dec} decode steps")
+    log("parity", f"{arch} f32, {count_params(defs) / 1e9:.3f}B params, {cfg.n_layers} layers, "
+        f"init {time.perf_counter() - t0:.1f}s; prompt B={b} S={s}, {n_dec} decode steps; "
+        f"kernel routes {list(kernel)}")
     g = torch.Generator(device="cuda").manual_seed(1)
     prompt = torch.randint(1, cfg.vocab, (b, s), generator=g, device="cuda")
     steps = torch.randint(1, cfg.vocab, (n_dec, b, 1), generator=g, device="cuda")
     n = cfg.n_layers
     nudged = _nudged(params)
-    routes = {"kernel": (cp, params), "plain": (cx, params), "control": (cx, nudged)}
+    routes = {**{name: (c, params) for name, c in kernel.items()},
+              "plain": (cx, params), "control": (cx, nudged)}
+
+    def on(name):
+        """The context a route runs in: the plain scans for the plain routes."""
+        return plain_scans() if name in ("plain", "control") else contextlib.nullcontext()
 
     def logits_of(x):
         return L.unembed(params["embed"], L.apply_norm(params["ln_f"], x[:, -1:], cfg.norm), cfg)
@@ -331,13 +487,13 @@ def phase_parity() -> None:
     def drift(got, want):
         return max(_rel(o, w) for o, w in zip(got, want))
 
-    def run_entry_points(name, c, prm, depth):
+    def run_entry_points(name, c, prm):
         ops.reset_launches()
-        got = _entry_points(prm, c, prompt, steps, max_len)
-        want = {"flash_attention": depth, "decode_attention": depth * n_dec}
-        if name == "kernel" and ops.launches() != want:
-            raise AssertionError(f"kernel route launches {ops.launches()}, want {depth} "
-                                 f"per prefill and {depth} per decode step")
+        with on(name):
+            got = _entry_points(prm, c, prompt, steps, max_len)
+        want = expected_launches(c, 1, n_dec)
+        if ops.launches() != want:
+            raise AssertionError(f"{name} route launches {ops.launches()}, want {want}")
         return got
 
     with torch.no_grad():
@@ -345,117 +501,145 @@ def phase_parity() -> None:
         x, pos, _ = TF._embed_inputs(params, cfg, {"tokens": prompt})
         embed_rms = float(x.square().mean().sqrt())
         cache = DEC.init_cache(cfg, b, max_len, device="cuda")
-        worst = 0.0
+        worst = dict.fromkeys(kernel, 0.0)
         for li in range(n):
             p = TF.layer_params(params["blocks"], li)
-            xk, _ = TF._apply_block(p, x, pos, cp)
-            x, (k, v) = TF._apply_block(p, x, pos, cx)
-            worst = max(worst, _check_rel(f"prefill layer {li}", xk, x))
+            xk = {name: TF._apply_block(p, x, pos, c)[0] for name, c in kernel.items()}
+            with plain_scans():
+                x, (k, v), state = TF._apply_block(p, x, pos, cx)
+            for name in kernel:
+                worst[name] = max(worst[name], _check_rel(f"{name} prefill layer {li}", xk[name], x))
             cache["k"][li, :, :s], cache["v"][li, :, :s] = k, v
+            for key, t in state.items():
+                cache[key][li] = t
             if li == 0:
                 layer0_rms = float(x.square().mean().sqrt())
-        rel = _check_rel("prefill logits", logits_of(xk), logits_of(x))
-        log("parity", f"a. prefill, same input: worst layer output err / max |x| {worst:.3e}; "
-            f"logits err / max |logit| {rel:.3e} (tol {PARITY_REL_TOL}) ok; rms of the "
-            f"embedded input {embed_rms:.2f}, of the stream after layer 0 {layer0_rms:.2f}")
+        for name in kernel:
+            rel = _check_rel(f"{name} prefill logits", logits_of(xk[name]), logits_of(x))
+            log("parity", f"a. {name} prefill, same input: worst layer output err / max |x| "
+                f"{worst[name]:.3e}; logits err / max |logit| {rel:.3e} (tol {PARITY_REL_TOL}) ok")
+        log("parity", f"rms of the embedded input {embed_rms:.2f}, of the stream after layer 0 "
+            f"{layer0_rms:.2f}")
         cache["pos"].fill_(s)
         for i in range(n_dec):
             x = L.embed_tokens(params["embed"], steps[i], cfg)
             pos = cache["pos"]
-            worst = 0.0
+            worst = dict.fromkeys(kernel, 0.0)
             for li in range(n):
                 p = TF.layer_params(params["blocks"], li)
-                # both write the same new K/V (computed before attention) into the slot
-                xk = DEC._decode_block(p, x, cache["k"][li], cache["v"][li], pos, cp)
-                x = DEC._decode_block(p, x, cache["k"][li], cache["v"][li], pos, cx)
-                worst = max(worst, _check_rel(f"decode {i + 1} layer {li}", xk, x))
-            rel = _check_rel(f"decode {i + 1} logits", logits_of(xk), logits_of(x))
-            log("parity", f"a. decode {i + 1}, same input: worst layer output err / max |x| "
-                f"{worst:.3e}; logits err / max |logit| {rel:.3e} (tol {PARITY_REL_TOL}) ok")
+                layer = {key: t[li] for key, t in cache.items() if key != "pos"}
+                # each writes the same new K/V (computed before attention)
+                # into the slot; the recurrent state is only read
+                xk = {name: DEC._decode_block(p, x, layer, pos, c)[0] for name, c in kernel.items()}
+                x, state = DEC._decode_block(p, x, layer, pos, cx)
+                for name in kernel:
+                    worst[name] = max(worst[name], _check_rel(f"{name} decode {i + 1} layer {li}",
+                                                              xk[name], x))
+                for key, t in state.items():
+                    cache[key][li] = t
+            rels = {name: _check_rel(f"{name} decode {i + 1} logits", logits_of(xk[name]),
+                                     logits_of(x)) for name in kernel}
+            log("parity", f"a. decode {i + 1}, same input: " + "; ".join(
+                f"{name} worst layer err / max |x| {worst[name]:.3e}, logits {rels[name]:.3e}"
+                for name in kernel) + f" (tol {PARITY_REL_TOL}) ok")
             cache["pos"] += 1
         del cache
 
         # each route on its own stream; the prefill logits after every depth
         x0, pos, _ = TF._embed_inputs(params, cfg, {"tokens": prompt})
         xs = dict.fromkeys(routes, x0)
-        curve = []
+        curve = {name: [] for name in kernel}
         for li in range(n):
             for name, (c, prm) in routes.items():
-                xs[name], _ = TF._apply_block(TF.layer_params(prm["blocks"], li), xs[name], pos, c)
+                with on(name):
+                    xs[name] = TF._apply_block(TF.layer_params(prm["blocks"], li), xs[name],
+                                               pos, c)[0]
             want = logits_of(xs["plain"])
-            dk, dc = (_rel(logits_of(xs["kernel"]), want),
-                      _rel(logits_of(xs["control"]), want))
-            if dk > max(CHAOS_FACTOR * dc, PARITY_REL_TOL):
-                raise AssertionError(f"prefill at depth {li + 1}: the kernel route drifts "
-                                     f"{dk:.3e}, more than {CHAOS_FACTOR} x the control's {dc:.3e}")
-            curve.append((dk, dc))
-        log("parity", "prefill logits drift from the plain route by depth, kernel route / "
-            "control: " + ", ".join(f"{i + 1}: {dk:.1e}/{dc:.1e}"
-                                    for i, (dk, dc) in enumerate(curve))
-            + f"; within {CHAOS_FACTOR} x the control at every depth, ok")
+            dc = _rel(logits_of(xs["control"]), want)
+            for name in kernel:
+                dk = _rel(logits_of(xs[name]), want)
+                if dk > max(CHAOS_FACTOR * dc, PARITY_REL_TOL):
+                    raise AssertionError(f"{name} prefill at depth {li + 1}: drifts {dk:.3e}, "
+                                         f"more than {CHAOS_FACTOR} x the control's {dc:.3e}")
+                curve[name].append((dk, dc))
+        for name in kernel:
+            log("parity", f"{name}: prefill logits drift from the plain route by depth, kernel "
+                "route / control: " + ", ".join(f"{i + 1}: {dk:.1e}/{dc:.1e}"
+                                                 for i, (dk, dc) in enumerate(curve[name]))
+                + f"; within {CHAOS_FACTOR} x the control at every depth, ok")
         del xs
 
         # b. the entry points with the model cut to PARITY_DEPTH layers
         m = PARITY_DEPTH
         cut = {**params, "blocks": tree_map(lambda t: t[:m], params["blocks"])}
-        got = {name: run_entry_points(name, dataclasses.replace(c, n_layers=m), cut, m)
-               for name, c in (("kernel", cp), ("plain", cx))}
-        for i, (o, w) in enumerate(zip(got["kernel"], got["plain"])):
-            _check_rel(f"entry points at depth {m}, output {i}", o, w)
-        log("parity", f"b. entry points at depth {m}: prefill + {n_dec} decode steps, logits "
-            f"err / max |logit| {drift(got['kernel'], got['plain']):.3e} (tol "
-            f"{PARITY_REL_TOL}) ok; {m} flash_attention per prefill, {m} decode_attention "
-            "per decode step")
+        got = {name: run_entry_points(name, dataclasses.replace(c, n_layers=m), cut)
+               for name, c in (*kernel.items(), ("plain", cx))}
+        for name in kernel:
+            for i, (o, w) in enumerate(zip(got[name], got["plain"])):
+                _check_rel(f"{name} entry points at depth {m}, output {i}", o, w)
+            log("parity", f"b. {name} entry points at depth {m}: prefill + {n_dec} decode steps, "
+                f"logits err / max |logit| {drift(got[name], got['plain']):.3e} (tol "
+                f"{PARITY_REL_TOL}) ok; launches "
+                f"{expected_launches(dataclasses.replace(kernel[name], n_layers=m), 1, n_dec)}")
 
         # c. the entry points at full depth, beside the control
-        got = {name: run_entry_points(name, c, prm, n) for name, (c, prm) in routes.items()}
-        dk, dc = drift(got["kernel"], got["plain"]), drift(got["control"], got["plain"])
+        got = {name: run_entry_points(name, c, prm) for name, (c, prm) in routes.items()}
+        dc = drift(got["control"], got["plain"])
         top = float(got["plain"][0].abs().max())
-        if dk > max(CHAOS_FACTOR * dc, PARITY_REL_TOL):
-            raise AssertionError(f"entry points at depth {n}: the kernel route drifts {dk:.3e}, "
-                                 f"more than {CHAOS_FACTOR} x the control's {dc:.3e}")
-        log("parity", f"c. entry points at depth {n}: logits drift from the plain route (max "
-            f"err / max |logit|; prefill max |logit| {top:.1f}): kernel route {dk:.3e}, "
-            f"control (plain route, input nudged one f32 step) {dc:.3e}; within "
-            f"{CHAOS_FACTOR} x the control, ok")
+        for name in kernel:
+            dk = drift(got[name], got["plain"])
+            if dk > max(CHAOS_FACTOR * dc, PARITY_REL_TOL):
+                raise AssertionError(f"{name} entry points at depth {n}: drifts {dk:.3e}, "
+                                     f"more than {CHAOS_FACTOR} x the control's {dc:.3e}")
+            log("parity", f"c. {name} entry points at depth {n}: logits drift from the plain "
+                f"route (max err / max |logit|; prefill max |logit| {top:.1f}): kernel route "
+                f"{dk:.3e}, control (plain route, input nudged one f32 step) {dc:.3e}; within "
+                f"{CHAOS_FACTOR} x the control, ok")
     del params, nudged, routes, cut, got
     torch.cuda.empty_cache()
 
 
-def phase_serve() -> dict:
+def phase_serve(label: str, args: list) -> dict:
+    """One main path: the launcher at full width, counters set to 0 just
+    before and read just after."""
+    import torch
+
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
 
+    arch = args[args.index("--arch") + 1]
+    cfg = get_config(arch, attention_impl="pallas")
+    if "--scan-impl" in args:
+        cfg = with_scan(cfg, args[args.index("--scan-impl") + 1])
+    n_req = int(args[args.index("--requests") + 1])
+    max_new = int(args[args.index("--max-new") + 1])
     ops.reset_launches()
-    summary = serve.main(SERVE_ARGS)
+    summary = serve.main(args)
     launches = ops.launches()
-    n_layers = get_config("gemma-2b").n_layers
-    n_req = int(SERVE_ARGS[SERVE_ARGS.index("--requests") + 1])
-    max_new = int(SERVE_ARGS[SERVE_ARGS.index("--max-new") + 1])
     if summary["completed"] != n_req or summary["tokens"] != n_req * max_new:
-        raise AssertionError(f"serve: {summary['completed']}/{n_req} requests, "
+        raise AssertionError(f"serve {label}: {summary['completed']}/{n_req} requests, "
                              f"{summary['tokens']} tokens")
-    want = {"flash_attention": summary["prefills"] * n_layers,
-            "decode_attention": summary["decode_ticks"] * n_layers}
-    if launches != want or min(launches.values()) == 0:
-        raise AssertionError(f"serve launches {launches}, want {want}")
-    log("serve", f"gemma-2b {summary['dtype']} full width: {summary['completed']}/{n_req} "
+    want = expected_launches(cfg, summary["prefills"], summary["decode_ticks"])
+    if launches != want or any(launches[k] == 0 for k, v in want.items() if v):
+        raise AssertionError(f"serve {label} launches {launches}, want {want}")
+    log("serve", f"{label} {summary['dtype']} full width: {summary['completed']}/{n_req} "
         f"requests, {summary['tokens']} tokens in {summary['wall_s']}s = "
         f"{summary['tokens_per_s']} tokens/s; latency p50 {summary['latency_p50_s']:.3f}s "
         f"p99 {summary['latency_p99_s']:.3f}s; {summary['prefills']} prefills, "
         f"{summary['decode_ticks']} decode ticks")
-    log("serve", f"wrapper calls (launches) on the main path: {launches} "
-        f"({launches['flash_attention'] / n_req} and {launches['decode_attention'] / n_req} "
-        "per request)")
+    log("serve", f"{label} wrapper calls (launches) on the main path: {launches} "
+        f"(= prefills x {cfg.n_layers} for the prefill kernels, decode ticks x {cfg.n_layers} "
+        "for decode_attention)")
+    torch.cuda.empty_cache()
     return {"summary": summary, "launches": launches, "requests": n_req}
 
 
-def phase_timing(worst: dict, serve: dict) -> list:
+def phase_timing(worst: dict, serves: dict) -> list:
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, ref
 
     def measure(fns):  # timed at once: the callables close over this block's tensors
         return {"dev": {key: device_ms(fn) for key, fn in fns.items()},
@@ -465,79 +649,139 @@ def phase_timing(worst: dict, serve: dict) -> list:
     item = 2  # bytes per bf16 element
     rows = []
 
-    # K1 at the serve prefill: one request of 512 tokens, gemma's heads
-    b, s, hq, hkv, d = 1, 512, 8, 1, 256
-    q, k, v = _flash_inputs(b, s, hq, hkv, d, bf16, seed=7)
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    # bytes: q, k, v read once and out written once; FLOPs: q.k and p.v over
-    # the causal pairs, 2 * D each: 4 * B * Hq * D * S (S + 1) / 2
-    nbytes = item * (2 * b * s * hq * d + 2 * b * s * hkv * d)
-    flops = 4 * b * hq * d * s * (s + 1) / 2
-    rows.append(dict(
-        name="flash_attention", source="src/repro_torch/kernels/csrc/flash_attention.cu",
-        replaces="src/repro/kernels/flash_attention.py:34",
-        **measure({"ms": lambda: ops.flash_attention(q, k, v),
-                   "plain_ms": lambda: flash_plain(q, k, v),
-                   "library_ms": lambda: F.scaled_dot_product_attention(
-                       qt, kt, vt, is_causal=True, enable_gqa=True)}),
-        nbytes=nbytes, flops=flops, shape=f"B={b} S={s} Hq={hq} Hkv={hkv} D={d} bf16"))
+    def flash_row(b, s, hq, hkv, d, where):
+        # bytes: q, k, v read once and out written once; FLOPs: q.k and p.v
+        # over the causal pairs, 2 * D each: 4 * B * Hq * D * S (S + 1) / 2
+        q, k, v = _flash_inputs(b, s, hq, hkv, d, bf16, seed=7)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        return dict(
+            name="flash_attention", where=where,
+            **measure({"ms": lambda: ops.flash_attention(q, k, v),
+                       "plain_ms": lambda: flash_plain(q, k, v),
+                       "library_ms": lambda: F.scaled_dot_product_attention(
+                           qt, kt, vt, is_causal=True, enable_gqa=True)}),
+            nbytes=item * (2 * b * s * hq * d + 2 * b * s * hkv * d),
+            flops=4 * b * hq * d * s * (s + 1) / 2, peak=BF16_FLOPS,
+            shape=f"B={b} S={s} Hq={hq} Hkv={hkv} D={d} bf16")
 
-    # K2 at the serve decode tick: 8 slots, cache of 1024, valid lengths
-    # 512..543 over the run; timed at their mean, 528
-    b, m, length = 8, 1024, 528
-    q, ck, cv, lens = _decode_inputs(b, m, hq, hkv, d, bf16, 8, [length] * b)
-    qt = q.transpose(1, 2).contiguous()
-    kt, vt = ck.transpose(1, 2).contiguous(), cv.transpose(1, 2).contiguous()
-    mask = (torch.arange(m, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
-    # bytes: q once, the valid K/V slots once, lengths, out; FLOPs: 4 * D per
-    # (query head, valid slot)
-    nbytes = item * (2 * b * hq * d + 2 * b * length * hkv * d) + 4 * b
-    flops = 4 * b * hq * length * d
-    rows.append(dict(
-        name="decode_attention", source="src/repro_torch/kernels/csrc/decode_attention.cu",
-        replaces="src/repro/kernels/decode_attention.py:29",
-        **measure({"ms": lambda: ops.decode_attention(q, ck, cv, lens),
-                   "plain_ms": lambda: decode_plain(q, ck, cv, lens),
-                   "library_ms": lambda: F.scaled_dot_product_attention(
-                       qt, kt, vt, attn_mask=mask, enable_gqa=True)}),
-        nbytes=nbytes, flops=flops, shape=f"B={b} M={m} len={length} Hq={hq} Hkv={hkv} D={d} bf16"))
+    def decode_row(b, m, length, hq, hkv, d, where):
+        # bytes: q once, the valid K/V slots once, lengths, out; FLOPs: 4 * D
+        # per (query head, valid slot)
+        q, ck, cv, lens = _decode_inputs(b, m, hq, hkv, d, bf16, 8, [length] * b)
+        qt = q.transpose(1, 2).contiguous()
+        kt, vt = ck.transpose(1, 2).contiguous(), cv.transpose(1, 2).contiguous()
+        mask = (torch.arange(m, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
+        return dict(
+            name="decode_attention", where=where,
+            **measure({"ms": lambda: ops.decode_attention(q, ck, cv, lens),
+                       "plain_ms": lambda: decode_plain(q, ck, cv, lens),
+                       "library_ms": lambda: F.scaled_dot_product_attention(
+                           qt, kt, vt, attn_mask=mask, enable_gqa=True)}),
+            nbytes=item * (2 * b * hq * d + 2 * b * length * hkv * d) + 4 * b,
+            flops=4 * b * hq * length * d, peak=BF16_FLOPS,
+            shape=f"B={b} M={m} len={length} Hq={hq} Hkv={hkv} D={d} bf16")
 
-    out = []
+    # K1 at the serve prefill (one request of 512 tokens); K2 at the serve
+    # decode tick (8 slots, cache of 1024, valid lengths 512..543 over the
+    # run, timed at their mean, 528): gemma's heads, then hymba's
+    rows.append(flash_row(1, 512, 8, 1, 256, "gemma-2b"))
+    rows.append(decode_row(8, 1024, 528, 8, 1, 256, "gemma-2b"))
+    rows.append(flash_row(1, 512, 25, 5, 64, "hymba-1.5b"))
+    rows.append(decode_row(8, 1024, 528, 25, 5, 64, "hymba-1.5b"))
+
+    # K4 and K3 at hymba's serve prefill: one request of 512 tokens, di=3200, N=16, f32
+    b, s, di, n = 1, 512, 3200, 16
+    delta, B, C, x, A = _scan_inputs(b, s, di, n, seed=9)
+    dA, dBx = ref.ssm_discretize(delta, B, x, A)
+    f32 = 4
+    shape = f"B={b} S={s} di={di} N={n} f32"
+    # K4 bytes: dA, dBx, C read once, y and h_last written once; FLOPs: the
+    # h update (2), h * C (1) and its sum over N (1) per (b, t, d, n)
+    rows.append(dict(
+        name="ssm_scan", where="hymba-1.5b",
+        **measure({"ms": lambda: ops.ssm_scan(dA, dBx, C),
+                   "plain_ms": lambda: ref.ssm_scan_ref(dA, dBx, C)}),
+        nbytes=f32 * (2 * b * s * di * n + b * s * n + b * s * di + b * di * n),
+        flops=4 * b * s * di * n, peak=F32_FLOPS, shape=shape))
+    # K3 bytes: delta, x, B, C, A read once, y and h_last written once;
+    # FLOPs: K4's 4 plus delta * A, exp, and delta * B * x (2) per element
+    rows.append(dict(
+        name="ssm_scan_fused", where="hymba-1.5b",
+        **measure({"ms": lambda: ops.ssm_scan_fused(delta, B, C, x, A),
+                   "plain_ms": lambda: fused_plain(delta, B, C, x, A)}),
+        nbytes=f32 * (2 * b * s * di + 2 * b * s * n + di * n + b * s * di + b * di * n),
+        flops=8 * b * s * di * n, peak=F32_FLOPS, shape=shape))
+
+    out = {}
     for r in rows:
         dev, call = r["dev"], r["call"]
         t_bytes = r["nbytes"] / HBM_BYTES_PER_S * 1e3
-        t_ops = r["flops"] / BF16_FLOPS * 1e3
+        t_ops = r["flops"] / r["peak"] * 1e3
         bound_ms, bound_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-        launches = serve["launches"][r["name"]]
-        log("timing", f"{r['name']} at {r['shape']}: device time kernel {dev['ms'] * 1e3:.2f} us, "
-            f"plain {dev['plain_ms'] * 1e3:.2f} us, library (sdpa) {dev['library_ms'] * 1e3:.2f} us; "
-            f"per call, host included: kernel {call['ms'] * 1e3:.2f} us, plain "
-            f"{call['plain_ms'] * 1e3:.2f} us, library {call['library_ms'] * 1e3:.2f} us; bound "
-            f"{bound_ms * 1e3:.3f} us ({bound_by}: {r['nbytes']} B, {r['flops']:.4g} FLOP), "
-            f"{launches / serve['requests']} wrapper calls per request, "
+        lib = dev.get("library_ms")
+        by_path = {label: sv["launches"][r["name"]] for label, sv in serves.items()}
+        log("timing", f"{r['name']} at {r['where']}'s {r['shape']}: device time kernel "
+            f"{dev['ms'] * 1e3:.2f} us, plain {dev['plain_ms'] * 1e3:.2f} us, library "
+            + (f"(sdpa) {lib * 1e3:.2f} us" if lib is not None else "none")
+            + f"; per call, host included: kernel {call['ms'] * 1e3:.2f} us, plain "
+            f"{call['plain_ms'] * 1e3:.2f} us"
+            + (f", library {call['library_ms'] * 1e3:.2f} us" if lib is not None else "")
+            + f"; bound {bound_ms * 1e3:.3f} us ({bound_by}: {r['nbytes']} B, "
+            f"{r['flops']:.4g} FLOP); wrapper calls on the serve paths {by_path}, "
             f"{ops.GRIDS_PER_CALL[r['name']]} grid(s) each")
+        entry = {"ms": dev["ms"], "plain_ms": dev["plain_ms"], "bound_ms": bound_ms,
+                 "bound_by": bound_by, "library_ms": lib, "call_ms": call["ms"],
+                 "shape": r["shape"]}
+        if r["name"] in out:  # a second shape of the same kernel
+            out[r["name"]]["at_" + r["where"]] = entry
+            continue
+        main = MAIN_PATH[r["name"]]
         # launches: wrapper calls on the main path; grids_per_call: the
         # __global__ kernels each call launches
-        out.append({"name": r["name"], "route": "cuda", "source": r["source"],
-                    "replaces": r["replaces"], "launches": launches,
-                    "grids_per_call": ops.GRIDS_PER_CALL[r["name"]],
-                    "max_abs_err": worst[r["name"]], "ms": dev["ms"], "plain_ms": dev["plain_ms"],
-                    "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": dev["library_ms"],
-                    "call_ms": call["ms"]})
-    return out
+        out[r["name"]] = {"name": r["name"], "route": "cuda",
+                          "source": f"src/repro_torch/kernels/csrc/{SOURCES[r['name']]}",
+                          "replaces": REPLACES[r["name"]],
+                          "launches": serves[main]["launches"][r["name"]],
+                          "main_path": main, "launches_by_path": by_path,
+                          "grids_per_call": ops.GRIDS_PER_CALL[r["name"]],
+                          "max_abs_err": worst[r["name"]], **entry}
+    return list(out.values())
 
 
-def phase_breakdown() -> None:
-    """One prefill and one full decode tick of the bf16 serve engine, with the
-    device's busy time from the profiler against the host's wall time."""
+def _profile(what: str, fn) -> None:
+    """Wall time, device busy time and the top device ops of one fn()."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    busy_us = sum(e.self_device_time_total for e in events)
+    n_kernels = sum(e.count for e in events)
+    if busy_us <= 0:
+        raise RuntimeError(f"{what} {wall * 1e3:.2f} ms wall: the profiler saw no device time")
+    log("breakdown", f"{what} {wall * 1e3:.2f} ms wall, device busy {busy_us / 1e3:.2f} ms "
+        f"(idle share {1 - busy_us / 1e3 / (wall * 1e3):.3f}), {n_kernels} device ops")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:6]:
+        log("breakdown", f"  {e.self_device_time_total / 1e3:.3f} ms "
+            f"({100 * e.self_device_time_total / busy_us:.1f}% of busy) x{e.count} {e.key[:90]}")
+
+
+def phase_breakdown(arch: str) -> None:
+    """One prefill (hybrid) and one full decode tick of the bf16 serve engine,
+    with the device's busy time from the profiler against the host's wall time."""
+    import torch
+
     from repro_torch.configs import get_config
+    from repro_torch.models import decoding as DEC
     from repro_torch.serving import ServingEngine
     from repro_torch.steps import init_model
 
-    cfg = get_config("gemma-2b", attention_impl="pallas")
+    cfg = get_config(arch, attention_impl="pallas")
     _, params = init_model(cfg, seed=0, max_seq=1024, device="cuda")
     eng = ServingEngine(cfg, params, max_batch=8, max_len=1024, prefill_len=512, device="cuda")
     g = torch.Generator().manual_seed(0)
@@ -546,24 +790,12 @@ def phase_breakdown() -> None:
     eng.step()  # admit all 8 + first tick, warms everything up
     for _ in range(2):
         eng.step()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        eng.step()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
-    busy_us = sum(e.self_device_time_total for e in events)
-    n_kernels = sum(e.count for e in events)
-    if busy_us <= 0:
-        raise RuntimeError(f"decode tick (8 slots) {wall * 1e3:.2f} ms wall: the profiler saw "
-                           "no device time")
-    log("breakdown", f"decode tick (8 slots) {wall * 1e3:.2f} ms wall, device busy "
-        f"{busy_us / 1e3:.2f} ms (idle share {1 - busy_us / 1e3 / (wall * 1e3):.3f}), "
-        f"{n_kernels} device ops per tick")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:6]:
-        log("breakdown", f"  {e.self_device_time_total / 1e3:.3f} ms "
-            f"({100 * e.self_device_time_total / busy_us:.1f}% of busy) x{e.count} {e.key[:90]}")
+    with torch.no_grad():
+        if cfg.family == "hybrid":
+            toks = torch.randint(1, cfg.vocab, (1, 512), generator=g).to("cuda")
+            _profile(f"{arch} prefill (1 x 512 tokens)",
+                     lambda: DEC.prefill(params, cfg, {"tokens": toks}, max_len=1024))
+        _profile(f"{arch} decode tick (8 slots)", eng.step)
     del eng, params
     torch.cuda.empty_cache()
 
@@ -575,10 +807,12 @@ def main() -> int:
 
     phase_build()
     worst = phase_kernels()
-    phase_parity()
-    serve = phase_serve()
-    kernels = phase_timing(worst, serve)
-    phase_breakdown()
+    for arch in ("gemma-2b", "hymba-1.5b"):
+        phase_parity(arch)
+    serves = {label: phase_serve(label, args) for label, args in SERVE_RUNS}
+    kernels = phase_timing(worst, serves)
+    for arch in ("gemma-2b", "hymba-1.5b"):
+        phase_breakdown(arch)
     log("done", f"all phases passed in {time.perf_counter() - t_start:.1f}s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,8 +1,8 @@
-"""Model-layout wrappers around the attention kernels, with launch counters.
+"""Model-layout wrappers around the kernels, with launch counters.
 
-Port of the attention half of ``repro.kernels.ops``.  Layout contract with
-``repro_torch.models.layers``: activations are (B, S, H, D), caches are
-(B, M, Hkv, D).
+Port of ``repro.kernels.ops``.  Layout contract with ``repro_torch.models``:
+attention activations are (B, S, H, D), caches are (B, M, Hkv, D); the scans
+take the mixer's (B, S, di[, N]) tensors in f32.
 
 Dispatch is by the device of the tensors and nothing else: a CPU tensor goes
 to the plain version in ``ref``; a CUDA tensor launches the CUDA kernel or
@@ -10,10 +10,14 @@ raises.  The arguments are checked once per call: by the launcher on the
 card, by the same ``check_args`` here on the CPU.  Each wrapper's
 ``launches`` attribute counts the calls that launched its kernel (the plain
 version is not counted); one K2 call runs two grids, split and combine.
+
+The scans take any S: the kernels need no chunk multiple, so there is no
+padding here (the JAX wrappers pad with identity steps, which leave y and
+h_last as they are).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
@@ -22,6 +26,9 @@ from repro_torch.kernels.decode_attention import check_args as _check_decode
 from repro_torch.kernels.decode_attention import decode_attention_bmhd
 from repro_torch.kernels.flash_attention import check_args as _check_flash
 from repro_torch.kernels.flash_attention import flash_attention_bshd
+from repro_torch.kernels.ssm_scan import check_fused_args as _check_fused
+from repro_torch.kernels.ssm_scan import check_scan_args as _check_scan
+from repro_torch.kernels.ssm_scan import ssm_scan_bsdn, ssm_scan_fused_bsd
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -50,11 +57,40 @@ def decode_attention(q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tens
     return out
 
 
+def ssm_scan(dA: torch.Tensor, dBx: torch.Tensor, C: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4: h_t = dA_t * h_{t-1} + dBx_t, y_t = <h_t, C_t>.  dA, dBx:
+    (B,S,di,N) f32; C: (B,S,N) f32 -> (y (B,S,di), h_last (B,di,N)) f32."""
+    if dA.device.type == "cpu":
+        _check_scan(dA, dBx, C)
+        return _ref.ssm_scan_ref(dA, dBx, C)
+    out = ssm_scan_bsdn(dA, dBx, C)
+    ssm_scan.launches += 1
+    return out
+
+
+def ssm_scan_fused(delta: torch.Tensor, B: torch.Tensor, C: torch.Tensor, x: torch.Tensor,
+                   A: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3: the scan with its discretisation (dA = exp(delta A), dBx = delta B
+    x) fused in.  delta, x: (B,S,di); B, C: (B,S,N); A: (di,N); f32 ->
+    (y (B,S,di), h_last (B,di,N)) f32."""
+    if delta.device.type == "cpu":
+        _check_fused(delta, B, C, x, A)
+        return _ref.ssm_scan_ref(*_ref.ssm_discretize(delta, B, x, A), C)
+    out = ssm_scan_fused_bsd(delta, B, C, x, A)
+    ssm_scan_fused.launches += 1
+    return out
+
+
 flash_attention.launches = 0
 decode_attention.launches = 0
-KERNELS = {"flash_attention": flash_attention, "decode_attention": decode_attention}
+ssm_scan.launches = 0
+ssm_scan_fused.launches = 0
+KERNELS = {"flash_attention": flash_attention, "decode_attention": decode_attention,
+           "ssm_scan": ssm_scan, "ssm_scan_fused": ssm_scan_fused}
 # __global__ kernels one wrapper call launches
-GRIDS_PER_CALL = {"flash_attention": 1, "decode_attention": 2}
+GRIDS_PER_CALL = {"flash_attention": 1, "decode_attention": 2, "ssm_scan": 1,
+                  "ssm_scan_fused": 1}
 
 
 def reset_launches() -> None:

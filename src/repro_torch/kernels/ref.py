@@ -1,12 +1,14 @@
-"""Plain PyTorch versions of the attention kernels (the allclose reference).
+"""Plain PyTorch versions of the kernels (the allclose reference).
 
-Port of the attention half of ``repro.kernels.ref``: ``-inf`` masking, f32
-softmax, output in q's dtype.  The wrappers in ``ops`` use these for tensors
-that lie on the CPU; ``chip_smoke.py`` holds each CUDA kernel against them.
+Port of ``repro.kernels.ref``: for attention ``-inf`` masking, f32 softmax,
+output in q's dtype; for the selective scan the discretisation and the
+recurrence in f32.  The wrappers in ``ops`` use these for tensors that lie on
+the CPU; ``chip_smoke.py`` holds each CUDA kernel against them.
 """
 from __future__ import annotations
 
 import math
+from typing import Tuple
 
 import torch
 
@@ -41,3 +43,31 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s = s.masked_fill(~mask, float("-inf"))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhm,bhmd->bhd", p, vr).to(q.dtype)
+
+
+def ssm_discretize(delta: torch.Tensor, B: torch.Tensor, x: torch.Tensor,
+                   A: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """ZOH discretisation: dA_t = exp(delta_t*A); dBx_t = delta_t*B_t*x_t.
+
+    delta, x: (B,S,di); B: (B,S,N); A: (di,N) -> dA, dBx (B,S,di,N).  The
+    fused scan kernel computes the same per step in registers."""
+    dA = torch.exp(delta[..., None] * A)
+    dBx = delta[..., None] * B[:, :, None, :] * x[..., None]
+    return dA, dBx
+
+
+def ssm_scan_ref(dA: torch.Tensor, dBx: torch.Tensor, C: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Linear recurrence h_t = dA_t * h_{t-1} + dBx_t, h_{-1} = 0;
+    y_t = <h_t, C_t>.
+
+    dA, dBx: (B,S,di,N) f32;  C: (B,S,N) f32.
+    Returns (y (B,S,di) f32, h_last (B,di,N) f32).  One step at a time: the
+    oracle, not a fast path."""
+    b, s, di, n = dA.shape
+    h = torch.zeros((b, di, n), dtype=torch.float32, device=dA.device)
+    y = torch.empty((b, s, di), dtype=torch.float32, device=dA.device)
+    for t in range(s):
+        h = dA[:, t] * h + dBx[:, t]
+        y[:, t] = torch.einsum("bdn,bn->bd", h, C[:, t])
+    return y, h

@@ -2,13 +2,19 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b \
       --requests 12 --max-batch 4 --max-new 8               # on the card
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b --full-width \
+      --requests 16 --max-batch 8 --prefill-len 512 --max-len 1024 --max-new 32
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --json
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b --device cpu --json
 
-Port of ``repro.launch.serve`` with three more flags: ``--device`` (default
+Port of ``repro.launch.serve`` with four more flags: ``--device`` (default
 ``cuda``; without a card it raises unless ``--device cpu``), ``--full-width``
-(the arch's published config instead of its smoke config) and
+(the arch's published config instead of its smoke config),
 ``--attention-impl`` (``pallas`` routes prefill and decode attention through
-the CUDA kernels; ``xla`` is plain PyTorch).
+the CUDA kernels; ``xla`` is plain PyTorch) and, for the hybrid family,
+``--scan-impl`` (the prefill scan: ``assoc`` through K4, ``chunked`` or
+``chunked_u`` through K3).  Hybrid prompts are exactly ``--prefill-len``
+tokens, as the engine requires for recurrent families.
 
 Reports throughput (tokens/sec, requests/sec) and per-request latency
 percentiles (submit -> finish, so queueing inside the engine counts).
@@ -17,6 +23,7 @@ percentiles (submit -> finish, so queueing inside the engine counts).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 from typing import Any, Dict, List, Optional
@@ -25,6 +32,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ARCH_IDS, get_config, get_smoke_config
+from repro_torch.models.ssm import SCAN_IMPLS
+from repro_torch.models.transformer import PORTED_FAMILIES
 from repro_torch.serving import ServingEngine
 from repro_torch.steps import init_model, resolve_device
 
@@ -54,6 +63,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
                    help="the arch's full config instead of its smoke config")
     p.add_argument("--attention-impl", default="pallas", choices=("pallas", "xla"),
                    help="pallas: the CUDA attention kernels; xla: plain PyTorch")
+    p.add_argument("--scan-impl", default=None, choices=SCAN_IMPLS,
+                   help="hybrid family: the prefill scan (default: the config's)")
     p.add_argument("--json", action="store_true",
                    help="emit the summary as one JSON object")
     args = p.parse_args(argv)
@@ -61,9 +72,13 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     device = resolve_device(args.device)
     make = get_config if args.full_width else get_smoke_config
     cfg = make(args.arch, attention_impl=args.attention_impl)
-    if cfg.family != "dense":
-        raise SystemExit(f"serve in repro_torch runs the dense family; {args.arch} is "
-                         f"{cfg.family!r}, not ported yet")
+    if cfg.family not in PORTED_FAMILIES:
+        raise SystemExit(f"serve in repro_torch runs the {PORTED_FAMILIES} families; "
+                         f"{args.arch} is {cfg.family!r}, not ported yet")
+    if args.scan_impl is not None:
+        if cfg.ssm is None:
+            raise SystemExit(f"--scan-impl: {args.arch} has no SSM mixer")
+        cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(cfg.ssm, scan_impl=args.scan_impl))
     _, params = init_model(cfg, seed=args.seed, max_seq=args.max_len, device=device)
     eng = ServingEngine(cfg, params, max_batch=args.max_batch, max_len=args.max_len,
                         prefill_len=args.prefill_len, device=device)
@@ -100,7 +115,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     toks = eng.stats["tokens"]
     summary = {
         "arch": args.arch, "full_width": args.full_width, "device": str(device),
-        "attention_impl": args.attention_impl, "dtype": cfg.dtype,
+        "attention_impl": args.attention_impl,
+        "scan_impl": cfg.ssm.scan_impl if cfg.ssm is not None else None, "dtype": cfg.dtype,
         "requests": args.requests, "completed": len(finish_t), "tokens": toks,
         "wall_s": round(dt, 4),
         "tokens_per_s": round(toks / dt, 2) if dt > 0 else None,

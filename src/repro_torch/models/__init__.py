@@ -1,1 +1,2 @@
-"""Dense decoder model: params, layers, stack assembly, prefill/decode."""
+"""Decoder models (dense and hybrid): params, layers, the SSM mixer, stack
+assembly, prefill/decode."""

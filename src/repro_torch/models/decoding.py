@@ -1,10 +1,15 @@
-"""Prefill / single-token decode with a KV cache, dense family.
+"""Prefill / single-token decode with KV + recurrent-state caches, dense and
+hybrid families.
 
-Port of the dense path of ``repro.models.decoding``.  Cache layout (layer
-major, as in the reference): ``{"k","v": (L,B,M,Hkv,Dh), "pos": (B,)}``.
+Port of the dense and hybrid paths of ``repro.models.decoding``.  Cache
+layouts (layer major, as in the reference):
+  dense  : {"k","v": (L,B,M,Hkv,Dh), "pos": (B,)}
+  hybrid : + {"conv": (L,B,k-1,di) activation dtype, "ssm": (L,B,di,n) f32}
 
-Unlike the reference, ``decode_step`` writes the new K/V into the cache it is
-given, in place, and returns that cache with a new ``pos``.
+Unlike the reference, ``decode_step`` writes the new K/V and recurrent states
+into the cache it is given, in place, and returns that cache with a new
+``pos``.  The reference's sliding-window mode (``window > 0``, a circular KV
+buffer) is not ported.
 """
 from __future__ import annotations
 
@@ -14,8 +19,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as SSM
 from repro_torch.models.transformer import (_apply_block, _embed_inputs, check_family,
-                                            layer_params)
+                                            layer_params, mix)
 
 Params = Dict[str, Any]
 
@@ -25,11 +31,16 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     check_family(cfg)
     dt = L.adtype(cfg)
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
-    return {
+    cache = {
         "k": torch.zeros(shape, dtype=dt, device=device),
         "v": torch.zeros(shape, dtype=dt, device=device),
         "pos": torch.zeros((batch,), dtype=torch.int32, device=device),
     }
+    if cfg.family == "hybrid":
+        state = SSM.init_ssm_state(cfg, batch, device=device)
+        for key, t in state.items():  # one per layer
+            cache[key] = t.expand(cfg.n_layers, *t.shape).contiguous()
+    return cache
 
 
 def prefill(params: Params, cfg: ModelConfig, batch_inputs: Dict[str, torch.Tensor],
@@ -40,7 +51,9 @@ def prefill(params: Params, cfg: ModelConfig, batch_inputs: Dict[str, torch.Tens
     cache = init_cache(cfg, b, max_len, device=x.device)
     m = max_len
     for li in range(cfg.n_layers):
-        x, (k, v) = _apply_block(layer_params(params["blocks"], li), x, positions, cfg)
+        x, (k, v), state = _apply_block(layer_params(params["blocks"], li), x, positions, cfg)
+        for key, t in state.items():  # the hybrid block's conv and ssm states
+            cache[key][li] = t
         if s >= m:  # keep the last m positions
             cache["k"][li] = k[:, -m:]
             cache["v"][li] = v[:, -m:]
@@ -53,26 +66,38 @@ def prefill(params: Params, cfg: ModelConfig, batch_inputs: Dict[str, torch.Tens
     return L.unembed(params["embed"], x, cfg), cache
 
 
-def _decode_block(p: Params, x: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
-                  pos: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """One decoder block for one new token; writes the layer's K/V in place."""
+def _decode_block(p: Params, x: torch.Tensor, layer: Dict[str, torch.Tensor],
+                  pos: torch.Tensor, cfg: ModelConfig
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One decoder block for one new token.  ``layer`` is the layer's slice
+    of the cache; its K/V are written in place (the same new row on every
+    call), its recurrent state is only read.  Returns (x, new recurrent
+    state), the state empty for dense."""
     xn = L.apply_norm(p["ln_attn"], x, cfg.norm)
-    attn_out, _ = L.attn_decode(p["attn"], xn, cache_k, cache_v, pos, cfg)
-    x = x + attn_out
+    attn_out, _ = L.attn_decode(p["attn"], xn, layer["k"], layer["v"], pos, cfg)
+    state: Dict[str, torch.Tensor] = {}
+    if cfg.family == "hybrid":
+        ssm_out, state = SSM.ssm_decode(p["ssm"], xn, layer, cfg)
+        x = mix(p, x, attn_out, ssm_out)
+    else:
+        x = x + attn_out
     xn2 = L.apply_norm(p["ln_mlp"], x, cfg.norm)
-    return x + L.apply_mlp(p["mlp"], xn2, cfg.activation)
+    return x + L.apply_mlp(p["mlp"], xn2, cfg.activation), state
 
 
 def decode_step(params: Params, cfg: ModelConfig, cache: Dict[str, torch.Tensor],
                 tokens: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One token for every sequence.  tokens: (B,1).  Returns (logits (B,1,V),
-    cache): the same K/V tensors, written in place, and ``pos + 1``."""
+    cache): the same K/V (and conv/ssm) tensors, written in place, and
+    ``pos + 1``."""
     check_family(cfg)
     pos = cache["pos"]  # (B,) absolute position of the new token
     x = L.embed_tokens(params["embed"], tokens, cfg)
     for li in range(cfg.n_layers):
-        x = _decode_block(layer_params(params["blocks"], li), x, cache["k"][li],
-                          cache["v"][li], pos, cfg)
+        layer = {key: t[li] for key, t in cache.items() if key != "pos"}
+        x, state = _decode_block(layer_params(params["blocks"], li), x, layer, pos, cfg)
+        for key, t in state.items():
+            cache[key][li] = t
     new_cache = dict(cache)
     new_cache["pos"] = pos + 1
     x = L.apply_norm(params["ln_f"], x, cfg.norm)

@@ -19,7 +19,7 @@ import torch
 class ParamDef:
     shape: Tuple[int, ...]
     axes: Tuple[Optional[str], ...]  # logical axis name per dim (None = replicated)
-    init: str = "normal"  # normal | zeros | ones | embed
+    init: str = "normal"  # normal | zeros | ones | embed | scaled
     scale: float = 1.0  # stddev multiplier / fan-in override
     dtype: torch.dtype = torch.bfloat16
 
@@ -63,6 +63,8 @@ def _init_leaf(d: ParamDef, generator: torch.Generator, device) -> torch.Tensor:
             std = d.scale
         torch.nn.init.trunc_normal_(x, mean=0.0, std=std, a=-2.0 * std, b=2.0 * std,
                                     generator=generator)
+    elif d.init == "scaled":  # uniform in +-scale (conv/ssm misc params)
+        x.uniform_(-d.scale, d.scale, generator=generator)
     else:
         raise ValueError(f"unknown init {d.init!r}")
     return x.to(d.dtype)

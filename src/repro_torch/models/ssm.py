@@ -1,0 +1,129 @@
+"""Mamba-style selective-scan SSM mixer (hymba's parallel-head partner).
+
+Port of ``repro.models.ssm``.  Prefill runs the recurrence over the whole
+prompt through a scan kernel; decode carries (conv_state, ssm_state) and is
+O(1) per token (plain PyTorch: one step has no kernel behind it in the
+reference either).
+
+``cfg.ssm.scan_impl`` picks the prefill scan as the reference does, and each
+choice computes what its JAX counterpart computes:
+
+- ``"assoc"`` (default): discretise to dA, dBx (B,S,di,N) in plain PyTorch,
+  then K4 (``ops.ssm_scan``) runs the recurrence (the reference runs an
+  associative scan in XLA);
+- ``"chunked"`` / ``"chunked_u"``: K3 (``ops.ssm_scan_fused``) discretises
+  per step inside the kernel (the reference streams chunks in XLA).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ref as kref
+from repro_torch.models.layers import adtype
+from repro_torch.models.params import ParamDef
+
+Params = Dict[str, Any]
+SCAN_IMPLS = ("assoc", "chunked", "chunked_u")
+
+
+def ssm_defs(cfg) -> Params:
+    s = cfg.ssm
+    d, di, n, k = cfg.d_model, s.d_inner(cfg.d_model), s.d_state, s.d_conv
+    dt = adtype(cfg)
+    dt_rank = max(d // 16, 1)
+    return {
+        "in_proj": ParamDef((d, 2 * di), ("embed", "inner"), dtype=dt),
+        "conv_w": ParamDef((k, di), (None, "inner"), init="scaled", scale=0.5, dtype=dt),
+        "conv_b": ParamDef((di,), ("inner",), init="zeros", dtype=dt),
+        "x_proj": ParamDef((di, dt_rank + 2 * n), ("inner", None), dtype=dt),
+        "dt_proj": ParamDef((dt_rank, di), (None, "inner"), dtype=dt),
+        "dt_bias": ParamDef((di,), ("inner",), init="scaled", scale=1.0, dtype=torch.float32),
+        "A_log": ParamDef((di, n), ("inner", None), init="scaled", scale=1.0,
+                          dtype=torch.float32),
+        "D": ParamDef((di,), ("inner",), init="ones", dtype=torch.float32),
+        "out_proj": ParamDef((di, d), ("inner", "embed"), dtype=dt),
+    }
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 state: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Depthwise causal conv1d.  x: (B,S,di); w: (k,di).  Returns (y, new_state)
+    where state holds the last k-1 inputs (B,k-1,di)."""
+    k, s = w.shape[0], x.shape[1]
+    if state is None:
+        state = torch.zeros((x.shape[0], k - 1, x.shape[2]), dtype=x.dtype, device=x.device)
+    xp = torch.cat([state, x], dim=1)  # (B, S+k-1, di)
+    y = xp[:, 0:s] * w[0]  # summed tap by tap, in the reference's order
+    for i in range(1, k):
+        y = y + xp[:, i:i + s] * w[i]
+    y = y + b
+    new_state = xp[:, -(k - 1):] if k > 1 else state
+    return y, new_state
+
+
+def _sel_params(p: Params, x: torch.Tensor, cfg
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x: (..., di) -> (delta (...,di), B (...,n), C (...,n)), all f32."""
+    n = cfg.ssm.d_state
+    dt_rank = p["dt_proj"].shape[0]
+    proj = x @ p["x_proj"]  # (..., dt_rank + 2n), in the activation dtype
+    dt_in, bc = proj[..., :dt_rank], proj[..., dt_rank:]
+    delta = F.softplus(dt_in.float() @ p["dt_proj"].float() + p["dt_bias"])
+    return delta, bc[..., :n].float(), bc[..., n:].float()
+
+
+def ssm_forward(p: Params, x: torch.Tensor, cfg
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Full-sequence selective scan.  x: (B,S,d) -> (y (B,S,d), final state
+    {conv (B,k-1,di), ssm (B,di,n) f32})."""
+    xz = x @ p["in_proj"]
+    di = xz.shape[-1] // 2
+    xs, z = xz[..., :di], xz[..., di:]
+    xs, conv_state = _causal_conv(xs, p["conv_w"], p["conv_b"])
+    xs = F.silu(xs)
+    delta, B, C = _sel_params(p, xs, cfg)
+    A = -torch.exp(p["A_log"])  # (di, n)
+    xf = xs.float()
+
+    impl = cfg.ssm.scan_impl
+    if impl == "assoc":
+        y, h_last = kops.ssm_scan(*kref.ssm_discretize(delta, B, xf, A), C)  # K4
+    elif impl in ("chunked", "chunked_u"):
+        y, h_last = kops.ssm_scan_fused(delta, B, C, xf, A)  # K3
+    else:
+        raise ValueError(f"scan_impl={impl!r}; the port has {SCAN_IMPLS}")
+    y = y + p["D"] * xf
+    y = y.to(x.dtype) * F.silu(z)
+    return y @ p["out_proj"], {"conv": conv_state, "ssm": h_last}
+
+
+def ssm_decode(p: Params, x: torch.Tensor, state: Dict[str, torch.Tensor], cfg
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Single-token step.  x: (B,1,d); state: {conv (B,k-1,di), ssm (B,di,n)}.
+    Returns (y (B,1,d), new state); ``state`` is not written."""
+    xz = x @ p["in_proj"]
+    di = xz.shape[-1] // 2
+    xs, z = xz[..., :di], xz[..., di:]
+    xs, conv_state = _causal_conv(xs, p["conv_w"], p["conv_b"], state["conv"])
+    xs = F.silu(xs)
+    delta, B, C = _sel_params(p, xs[:, 0], cfg)  # (B,di), (B,n), (B,n)
+    A = -torch.exp(p["A_log"])
+    dA = torch.exp(delta[..., None] * A)  # (B,di,n)
+    xf = xs[:, 0].float()
+    h = state["ssm"] * dA + delta[..., None] * B[:, None, :] * xf[..., None]
+    y = torch.einsum("bdn,bn->bd", h, C) + p["D"] * xf
+    y = (y.to(x.dtype) * F.silu(z[:, 0]))[:, None]
+    return y @ p["out_proj"], {"conv": conv_state, "ssm": h}
+
+
+def init_ssm_state(cfg, batch: int, device="cuda") -> Dict[str, torch.Tensor]:
+    s = cfg.ssm
+    di = s.d_inner(cfg.d_model)
+    return {
+        "conv": torch.zeros((batch, s.d_conv - 1, di), dtype=adtype(cfg), device=device),
+        "ssm": torch.zeros((batch, di, s.d_state), dtype=torch.float32, device=device),
+    }

@@ -1,16 +1,20 @@
 """Batched serving engine with continuous batching (slot refill).
 
-Port of ``repro.serving.engine`` for the dense family.  A fixed pool of
-``max_batch`` decode slots shares one batched KV cache.  A free slot is
-filled by prefilling the request at batch 1 and copying its cache into the
-slot, in place, on the batch axis (axis 1 of ``k``/``v``, axis 0 of ``pos``).
-Decode ticks advance every slot one token; finished slots are refilled at
-once.
+Port of ``repro.serving.engine`` for the dense and hybrid families.  A
+fixed pool of ``max_batch`` decode slots shares one batched cache.  A free
+slot is filled by prefilling the request at batch 1 and copying its cache into
+the slot, in place, on the batch axis (axis 1 of ``k``/``v``/``conv``/``ssm``,
+axis 0 of ``pos``).  Decode ticks advance every slot one token; finished
+slots are refilled at once.
 
-Prompts are right-padded to ``prefill_len`` and masked through the cache's
-valid length (``pos``): admission rewinds ``pos`` to ``len(prompt) - 1``, so
-the first decode re-processes the last prompt token (an idempotent KV write)
-and yields the first new token.
+Dense prompts are right-padded to ``prefill_len`` and masked through the
+cache's valid length (``pos``): admission rewinds ``pos`` to
+``len(prompt) - 1``, so the first decode re-processes the last prompt token
+(an idempotent KV write) and yields the first new token.  Recurrent families
+(hybrid) fold pads into their state and re-processing a token is not
+idempotent, so their prompts must be exactly ``prefill_len`` long, the first
+token comes from the prefill logits, ``pos`` is not rewound, and a request
+that is done after that token never takes a slot.
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ from repro_torch.models.transformer import check_family
 from repro_torch.steps import resolve_device
 
 Params = Dict[str, Any]
+RECURRENT_FAMILIES = ("hybrid",)
 
 
 @dataclasses.dataclass
@@ -63,6 +68,10 @@ class ServingEngine:
                eos_id: Optional[int] = None) -> int:
         if not prompt:
             raise ValueError("empty prompt")
+        if self.cfg.family in RECURRENT_FAMILIES and len(prompt) != self.prefill_len:
+            raise ValueError(
+                f"recurrent family {self.cfg.family!r} needs exact-length "
+                f"prompts ({self.prefill_len}); got {len(prompt)}")
         if len(prompt) > self.prefill_len:
             raise ValueError(f"prompt longer than prefill_len={self.prefill_len}")
         rid = next(self._ids)
@@ -95,16 +104,31 @@ class ServingEngine:
         plen = len(req.prompt)
         toks = torch.zeros((1, self.prefill_len), dtype=torch.long)
         toks[0, :plen] = torch.tensor(req.prompt, dtype=torch.long)
-        _, cache1 = DEC.prefill(self.params, self.cfg, {"tokens": toks.to(self.device)},
-                                max_len=self.max_len)
-        # rewind one token: the first decode re-processes the last prompt
-        # token (idempotent kv write), yielding the first new-token logits
-        self.cache["k"][:, slot] = cache1["k"][:, 0]
-        self.cache["v"][:, slot] = cache1["v"][:, 0]
-        self.cache["pos"][slot] = plen - 1
-        req.next_input = req.prompt[-1]
-        self.slots[slot] = req
+        logits1, cache1 = DEC.prefill(self.params, self.cfg, {"tokens": toks.to(self.device)},
+                                      max_len=self.max_len)
         self.stats["prefills"] += 1
+        if self.cfg.family in RECURRENT_FAMILIES:
+            # recurrent state is not idempotent: the first token comes from
+            # the prefill logits (the prompt is exact-length)
+            first = int(logits1[0, -1].argmax())
+            req.generated.append(first)
+            req.next_input = first
+            self.stats["tokens"] += 1
+            if (len(req.generated) >= req.max_new_tokens
+                    or (req.eos_id is not None and first == req.eos_id)):
+                req.done = True
+                self.finished[req.id] = req
+                return
+            self.cache["pos"][slot] = plen
+        else:
+            # rewind one token: the first decode re-processes the last prompt
+            # token (idempotent kv write), yielding the first new-token logits
+            self.cache["pos"][slot] = plen - 1
+            req.next_input = req.prompt[-1]
+        for key, t in cache1.items():  # every other leaf has batch axis 1
+            if key != "pos":
+                self.cache[key][:, slot] = t[:, 0]
+        self.slots[slot] = req
 
     def _decode_tick(self) -> None:
         toks = torch.tensor([[r.next_input if r is not None else 0] for r in self.slots],

@@ -178,7 +178,86 @@ def test_cpu_path_counts_no_launch():
     q, k, v = _qkv()
     ops.flash_attention(q, k, v)
     ops.decode_attention(q[:, :1], k, v, torch.tensor([8], dtype=torch.int32))
-    assert ops.launches() == {"flash_attention": 0, "decode_attention": 0}
+    ops.ssm_scan(*_scan_args())
+    ops.ssm_scan_fused(*_fused_args())
+    assert ops.launches() == {"flash_attention": 0, "decode_attention": 0, "ssm_scan": 0,
+                              "ssm_scan_fused": 0}
+    assert set(ops.GRIDS_PER_CALL) == set(ops.KERNELS)
+
+
+def _scan_args(b=2, s=5, di=8, n=4):
+    g = torch.Generator().manual_seed(1)
+    return (torch.rand(b, s, di, n, generator=g), torch.randn(b, s, di, n, generator=g),
+            torch.randn(b, s, n, generator=g))
+
+
+def _fused_args(b=2, s=5, di=8, n=4):
+    g = torch.Generator().manual_seed(2)
+    return (torch.rand(b, s, di, generator=g), torch.randn(b, s, n, generator=g),
+            torch.randn(b, s, n, generator=g), torch.randn(b, s, di, generator=g),
+            -torch.rand(di, n, generator=g))
+
+
+@pytest.mark.parametrize("bad", ["dtype", "rank", "dbx_shape", "c_shape", "c_stride",
+                                 "d_state", "noncontiguous"])
+def test_ssm_scan_rejects_what_the_kernel_does_not_take(bad):
+    dA, dBx, C = _scan_args()
+    if bad == "dtype":
+        dA = dA.double()
+    elif bad == "rank":
+        dA, dBx = dA[0], dBx[0]
+    elif bad == "dbx_shape":
+        dBx = dBx[:, :4]
+    elif bad == "c_shape":
+        C = C[:, :, :3]
+    elif bad == "c_stride":
+        C = torch.randn(2, 5, 8)[..., ::2]
+    elif bad == "d_state":
+        dA, dBx, C = _scan_args(n=3)
+    elif bad == "noncontiguous":
+        dA = torch.rand(2, 8, 5, 4).transpose(1, 2)
+    with pytest.raises((ValueError, TypeError)):
+        ops.ssm_scan(dA, dBx, C)
+
+
+@pytest.mark.parametrize("bad", ["dtype", "bf16_x", "rank", "x_shape", "b_shape", "a_shape",
+                                 "a_noncontiguous", "delta_stride", "d_state"])
+def test_ssm_scan_fused_rejects_what_the_kernel_does_not_take(bad):
+    delta, B, C, x, A = _fused_args()
+    if bad == "dtype":
+        delta = delta.double()
+    elif bad == "bf16_x":
+        x = x.to(torch.bfloat16)
+    elif bad == "rank":
+        delta = delta[0]
+    elif bad == "x_shape":
+        x = x[:, :4]
+    elif bad == "b_shape":
+        B = B[:1]
+    elif bad == "a_shape":
+        A = A[:7]
+    elif bad == "a_noncontiguous":
+        A = torch.rand(4, 8).t()
+    elif bad == "delta_stride":
+        delta = torch.rand(2, 5, 16)[..., ::2]
+    elif bad == "d_state":
+        delta, B, C, x, A = _fused_args(n=12)
+    with pytest.raises((ValueError, TypeError)):
+        ops.ssm_scan_fused(delta, B, C, x, A)
+
+
+def test_ssm_scans_take_strided_c_and_b():
+    """The model hands B and C as views of one projection (unit stride on N
+    only): the kernels read them through strides, so the wrappers take them."""
+    dA, dBx, C = _scan_args()
+    bc = torch.randn(2, 5, 3 * 4)
+    y0, h0 = ops.ssm_scan(dA, dBx, bc[..., 4:8].contiguous())
+    y1, h1 = ops.ssm_scan(dA, dBx, bc[..., 4:8])
+    assert torch.equal(y0, y1) and torch.equal(h0, h1)
+    delta, _, _, x, A = _fused_args()
+    y0, _ = ops.ssm_scan_fused(delta, bc[..., :4].contiguous(), bc[..., 4:8].contiguous(), x, A)
+    y1, _ = ops.ssm_scan_fused(delta, bc[..., :4], bc[..., 4:8], x, A)
+    assert torch.equal(y0, y1)
 
 
 @pytest.mark.parametrize("b,hkv,m", [(8, 1, 1024), (3, 2, 300), (1, 1, 7), (64, 8, 32768)])
@@ -196,5 +275,7 @@ def test_build_needs_nvcc_and_import_builds_nothing(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.nvcc_path()
     names = {p.name for p in _build.sources()}
-    assert names == {"flash_attention.cu", "decode_attention.cu"}
+    assert names == {"flash_attention.cu", "decode_attention.cu", "ssm_scan.cu"}
+    for name in ("repro_ssm_scan_fwd", "repro_ssm_scan_fused_fwd"):
+        assert name in _build.SIGNATURES
     assert "-gencode" in _build.NVCC_FLAGS and "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS

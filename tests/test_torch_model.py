@@ -32,8 +32,8 @@ j_attn_forward = jax.jit(JL.attn_forward, static_argnames=("cfg",))
 j_attn_decode = jax.jit(JL.attn_decode, static_argnames=("cfg",))
 j_prefill = jax.jit(JDEC.prefill, static_argnames=("cfg", "max_len"))
 j_decode_step = jax.jit(JDEC.decode_step, static_argnames=("cfg",))
-DENSE = [a for a in JC.ARCH_IDS if JC.get_config(a).family == "dense"]
-OTHER = [a for a in JC.ARCH_IDS if JC.get_config(a).family != "dense"]
+PORTED = [a for a in JC.ARCH_IDS if JC.get_config(a).family in TTF.PORTED_FAMILIES]
+OTHER = [a for a in JC.ARCH_IDS if JC.get_config(a).family not in TTF.PORTED_FAMILIES]
 
 
 def _cfgs(arch="gemma-2b", **kw):
@@ -209,7 +209,7 @@ def _def_table(defs):
     return out
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", PORTED)
 def test_model_defs_match_jax_at_full_width(arch):
     want = _def_table(JTF.model_defs(JC.get_config(arch), max_seq=128))
     got = _def_table(TTF.model_defs(TC.get_config(arch)))
@@ -224,27 +224,42 @@ def test_unported_families_raise(arch):
 
 
 def test_init_params_match_jax_structure():
-    jcfg, tcfg = _cfgs()
-    jp = JP.init_params(jax.random.PRNGKey(0), JTF.model_defs(jcfg))
-    defs = TTF.model_defs(tcfg)
-    tp = TP.init_params(defs, torch.Generator().manual_seed(0))
-    jflat = {jax.tree_util.keystr(k): v for k, v in jax.tree_util.tree_flatten_with_path(jp)[0]}
-    tflat = {}
-    for path, d in _def_table(defs).items():
-        t = tp
-        for k in path:
-            t = t[k]
-        tflat["".join(f"[{k!r}]" for k in path)] = (t, d)
-    assert set(tflat) == set(jflat)
-    for key, (t, (shape, dt, _, init, scale)) in tflat.items():
-        assert tuple(t.shape) == jflat[key].shape == shape
-        assert str(t.dtype).replace("torch.", "") == jflat[key].dtype.name == dt
-        if init == "ones":
-            assert bool((t == 1).all())
-        elif init in ("normal", "embed"):
-            std = scale if init == "embed" else scale / np.sqrt(shape[-2])
-            assert float(t.abs().max()) <= 2 * std * (1 + 1e-6)
-            assert 0.5 * std < float(t.float().std()) < std
+    """Dense (gemma) and hybrid (hymba, whose SSM leaves take the "scaled"
+    uniform init) smoke models."""
+    for arch in ("gemma-2b", "hymba-1.5b"):
+        jcfg, tcfg = _cfgs(arch)
+        jp = JP.init_params(jax.random.PRNGKey(0), JTF.model_defs(jcfg))
+        defs = TTF.model_defs(tcfg)
+        tp = TP.init_params(defs, torch.Generator().manual_seed(0))
+        jflat = {jax.tree_util.keystr(k): v
+                 for k, v in jax.tree_util.tree_flatten_with_path(jp)[0]}
+        tflat = {}
+        for path, d in _def_table(defs).items():
+            t = tp
+            for k in path:
+                t = t[k]
+            tflat["".join(f"[{k!r}]" for k in path)] = (t, d)
+        assert set(tflat) == set(jflat)
+        inits = set()
+        for key, (t, (shape, dt, _, init, scale)) in tflat.items():
+            inits.add(init)
+            assert tuple(t.shape) == jflat[key].shape == shape
+            assert str(t.dtype).replace("torch.", "") == jflat[key].dtype.name == dt
+            if init == "ones":
+                assert bool((t == 1).all())
+            elif init == "zeros":
+                assert not bool(t.any())
+            elif init in ("normal", "embed"):
+                std = scale if init == "embed" else scale / np.sqrt(shape[-2])
+                assert float(t.abs().max()) <= 2 * std * (1 + 1e-6)
+                assert 0.5 * std < float(t.float().std()) < std
+            elif init == "scaled":  # uniform in +-scale: std scale / sqrt(3)
+                assert float(t.abs().max()) <= scale
+                assert 0.8 * scale / np.sqrt(3) < float(t.float().std()) < 1.2 * scale / np.sqrt(3)
+            else:
+                raise AssertionError(f"{key}: init {init!r} not checked")
+        if arch == "hymba-1.5b":
+            assert "scaled" in inits
 
 
 def test_params_from_numpy_keeps_bf16_bits():

@@ -58,14 +58,15 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     """The default device is the card; with no card they raise, never run on
     the CPU quietly."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    cfg = t_smoke("gemma-2b")
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        serve.main(["--requests", "1"])
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        init_model(cfg)
-    _, params = init_model(cfg, device="cpu")
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        ServingEngine(cfg, params)
+    for arch in ("gemma-2b", "hymba-1.5b"):
+        cfg = t_smoke(arch)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            serve.main(["--arch", arch, "--requests", "1"])
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            init_model(cfg)
+        _, params = init_model(cfg, device="cpu")
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            ServingEngine(cfg, params)
 
 
 def test_port_imports_neither_jax_nor_repro():
