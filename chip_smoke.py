@@ -8,11 +8,15 @@ Phases, in order; any failure exits non-zero with its traceback:
 1. device    - require CUDA and an sm_90 card; print versions and
                ``nvidia-smi --query-gpu=name,power.limit``.
 2. build     - compile the kernels in ``src/repro_torch/kernels/csrc`` with
-               nvcc for sm_90a (one process per source, in parallel).
+               nvcc for sm_90a (one process per source, in parallel); check
+               in the SASS (cuobjdump) that K1's bf16 kernels issue wgmma
+               and TMA loads and K2's cp.async, mma.sync and ldmatrix.
 3. kernels   - each CUDA kernel against its plain PyTorch version on the card:
                attention in f32 (tol 2e-5) and bf16 (tol 2e-2) at gemma's and
-               hymba's head shapes, ragged shapes and GQA, decode also with NaN
-               past lengths; the scans (K3, K4) in f32 (tol 2e-5) at hymba's
+               hymba's head shapes, ragged shapes, S = 1 and 65, every head
+               dim and GQA; decode also with NaN past lengths, a row of
+               length 0 (output 0), G = 16 and lengths below the number of
+               splits; the scans (K3, K4) in f32 (tol 2e-5) at hymba's
                serve prefill shape, a ragged S and B=3, and with identity
                steps at the end, which must leave h_last as it was.
 4. parity    - gemma-2b, then hymba-1.5b (both prefill scans), at full width
@@ -35,9 +39,11 @@ Phases, in order; any failure exits non-zero with its traceback:
                and time per call (CUDA events, host launch cost included),
                the same for its plain version and, for attention, for
                scaled_dot_product_attention (a yardstick the port never
-               calls), and the roofline bound.
-7. breakdown - profiles of gemma-2b's decode tick and of hymba-1.5b's
-               prefill and decode tick in the bf16 serve engine.
+               calls), and the roofline bound; each kernel's time over the
+               library's and its bound over its time.
+7. breakdown - profiles of the prefill (1 x 512 tokens) and the decode tick
+               of gemma-2b and of hymba-1.5b in the bf16 serve engine: the
+               top six device ops and the port's kernels wherever they rank.
 
 The last three lines are the card's name and power limit, one JSON object
 with the per-kernel numbers, and ``{"ok": true, "device": {...}}``.
@@ -46,6 +52,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -135,24 +142,28 @@ def call_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 20, warmup: int = 5) -> float:
+def device_ms(fn, iters: int = 20, warmup: int = 5, attempts: int = 3) -> float:
     """Mean device time per call of fn(): the profiler's sum of the device
-    time of every kernel and copy the calls launched, over ``iters``."""
+    time of every kernel and copy the calls launched, over ``iters``.  Now
+    and then a profiling session records no device activity at all; such a
+    session is repeated, up to ``attempts`` sessions in all."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
-                  if e.device_type.name == "CUDA")
-    if busy_us <= 0:
-        raise RuntimeError("the profiler saw no device time")
-    return busy_us / iters / 1e3
+    for attempt in range(1, attempts + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                      if e.device_type.name == "CUDA")
+        if busy_us > 0:
+            return busy_us / iters / 1e3
+        log("timing", f"profiling session {attempt} of {attempts} saw no device time")
+    raise RuntimeError(f"the profiler saw no device time in {attempts} sessions")
 
 
 def with_scan(cfg, scan_impl: str):
@@ -217,6 +228,26 @@ def phase_device():
     return smi
 
 
+# a source name in a mangled symbol is its length, then the name
+NAME_AT = re.compile(r"(?=(\d+)([A-Za-z_]\w*))")
+# SASS opcodes that show each redesigned kernel's Hopper path: wgmma
+# (HGMMA), TMA tile loads (UTMALDG), mbarriers (SYNCS), cp.async (LDGSTS),
+# mma.sync (HMMA), ldmatrix (LDSM)
+SASS_OPS = ("HGMMA", "UTMALDG", "SYNCS", "LDGSTS", "HMMA", "LDSM")
+SASS_NEEDS = {"flash_fwd_wgmma_kernel": ("HGMMA", "UTMALDG", "SYNCS"),
+              "decode_bf16_kernel": ("LDGSTS", "HMMA", "LDSM")}
+
+
+def _short(mangled: str) -> str:
+    """A kernel's name and first template int from its mangled symbol."""
+    for m in NAME_AT.finditer(mangled):
+        n, rest = int(m.group(1)), m.group(2)
+        if len(rest) >= n and rest[:n].endswith("_kernel"):
+            arg = re.match(r"I\w*?Li(\d+)E", rest[n:])
+            return rest[:n] + (f"<{arg.group(1)}>" if arg else "")
+    return mangled
+
+
 def phase_build() -> None:
     from repro_torch.kernels import _build
 
@@ -224,9 +255,30 @@ def phase_build() -> None:
     log("build", f"{len(_build.sources())} sources -> {path.relative_to(ROOT)} in {secs:.1f}s "
         f"({' '.join(_build.NVCC_FLAGS)})")
     for line in build_log.splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
+        if "Compiling entry function" in line:
+            log("build", _short(line.split("'")[1]))
+        elif ("registers" in line or "spill" in line or "warning" in line.lower()
+              or line.startswith("==")):
             log("build", line.strip())
     _build.library()
+    # the machine code of the redesigned kernels, opcode counts per kernel
+    cuobjdump = Path(_build.nvcc_path()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(path)], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    seen = set()
+    for block in sass.split("Function : ")[1:]:
+        name = _short(block.split(None, 1)[0])
+        kind = name.split("<")[0]
+        if kind not in SASS_NEEDS:
+            continue
+        counts = {op: len(re.findall(rf"\b{op}\b", block)) for op in SASS_OPS}
+        missing = [op for op in SASS_NEEDS[kind] if counts[op] == 0]
+        if missing:
+            raise AssertionError(f"{name}: no {missing} in its SASS ({counts})")
+        seen.add(kind)
+        log("build", f"SASS {name}: " + ", ".join(f"{op} {n}" for op, n in counts.items() if n))
+    if seen != set(SASS_NEEDS):
+        raise AssertionError(f"SASS: found {sorted(seen)}, want {sorted(SASS_NEEDS)}")
 
 
 def _flash_inputs(b, s, hq, hkv, d, dtype, seed):
@@ -339,9 +391,13 @@ def phase_kernels() -> dict:
     worst = dict.fromkeys(ops.KERNELS, 0.0)
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).replace("torch.", "")
-        # gemma's heads (MQA, D=256), ragged S, GQA; hymba's heads (25/5, D=64)
+        # gemma's heads (MQA, D=256), ragged S, GQA; hymba's heads (25/5, D=64);
+        # one row, a tile and one row, and the head dims no model uses at full
+        # width (bf16 runs those through the mma.sync path, 64-256 through wgmma)
         for shape in [(1, 512, 8, 1, 256), (1, 77, 8, 1, 256), (2, 300, 8, 2, 128),
-                      (1, 512, 25, 5, 64), (2, 77, 25, 5, 64)]:
+                      (1, 512, 25, 5, 64), (2, 77, 25, 5, 64), (1, 1, 8, 1, 256),
+                      (2, 65, 8, 1, 256), (1, 65, 25, 5, 64), (2, 130, 4, 2, 16),
+                      (1, 100, 4, 1, 32), (1, 200, 16, 4, 128)]:
             q, k, v = _flash_inputs(*shape, dtype, seed=sum(shape))
             got = ops.flash_attention(q, k, v)
             torch.cuda.synchronize()
@@ -349,14 +405,25 @@ def phase_kernels() -> dict:
             worst["flash_attention"] = max(worst["flash_attention"], err)
             log("kernels", f"flash_attention {name} B,S,Hq,Hkv,D={shape}: max_abs_err {err:.3e} "
                 f"(atol = rtol = {TOL[name]}) ok")
+        # a row of length 0 (its output is 0: the plain version, masking with
+        # -inf, gives NaN there), G = 16, and lengths below the number of
+        # splits (at B=8, Hkv=1 on 132 SMs: 17 in bf16, 32 in f32)
         for shape, lengths in [((8, 1024, 8, 1, 256), [1, 17, 64, 300, 511, 512, 1000, 1024]),
                                ((3, 300, 8, 2, 128), [300, 129, 33]),
-                               ((8, 1024, 25, 5, 64), [1, 33, 100, 512, 513, 530, 777, 1024])]:
+                               ((8, 1024, 25, 5, 64), [1, 33, 100, 512, 513, 530, 777, 1024]),
+                               ((4, 256, 8, 1, 256), [0, 5, 256, 100]),
+                               ((2, 512, 16, 1, 128), [512, 301]),
+                               ((8, 1024, 8, 1, 256), [0, 1, 2, 3, 5, 7, 16, 31]),
+                               ((3, 64, 32, 2, 64), [0, 64, 9])]:
             q, ck, cv, lens = _decode_inputs(*shape, dtype, sum(shape), lengths)
-            want = decode_plain(q, ck, cv, lens)
+            live = lens > 0
+            want = decode_plain(q[live], ck[live], cv[live], lens[live])
             got = ops.decode_attention(q, ck, cv, lens)
             torch.cuda.synchronize()
-            err = check_close(f"decode_attention {name} {shape}", got, want, name)
+            if bool(got[~live].any()):
+                raise AssertionError(f"decode_attention {name} {shape}: a row of length 0 "
+                                     "is not 0")
+            err = check_close(f"decode_attention {name} {shape}", got[live], want, name)
             # NaN in every slot past lengths must not reach the output
             mask = torch.arange(shape[1], device="cuda")[None, :] >= lens[:, None]
             ck[mask] = float("nan")
@@ -689,6 +756,19 @@ def phase_timing(worst: dict, serves: dict) -> list:
     rows.append(flash_row(1, 512, 25, 5, 64, "hymba-1.5b"))
     rows.append(decode_row(8, 1024, 528, 25, 5, 64, "hymba-1.5b"))
 
+    # the fixed cost of a call, beside the serve shapes: K1 with one 64-row
+    # tile per head, K2 with one valid slot a row, and a one-element fill
+    # (the least a device op takes in this measurement)
+    q1, k1, v1 = _flash_inputs(1, 64, 8, 1, 256, bf16, seed=7)
+    qd, ckd, cvd, lensd = _decode_inputs(8, 1024, 8, 1, 256, bf16, 8, [1] * 8)
+    one = torch.empty(1, device="cuda")
+    probe = {"flash_attention B=1 S=64 Hq=8 Hkv=1 D=256": lambda: ops.flash_attention(q1, k1, v1),
+             "decode_attention B=8 M=1024 len=1 Hq=8 Hkv=1 D=256":
+                 lambda: ops.decode_attention(qd, ckd, cvd, lensd),
+             "fill of one f32 element": lambda: one.zero_()}
+    log("timing", "fixed cost, device time: " + "; ".join(
+        f"{what} {device_ms(fn) * 1e3:.2f} us" for what, fn in probe.items()))
+
     # K4 and K3 at hymba's serve prefill: one request of 512 tokens, di=3200, N=16, f32
     b, s, di, n = 1, 512, 3200, 16
     delta, B, C, x, A = _scan_inputs(b, s, di, n, seed=9)
@@ -719,6 +799,8 @@ def phase_timing(worst: dict, serves: dict) -> list:
         t_ops = r["flops"] / r["peak"] * 1e3
         bound_ms, bound_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
         lib = dev.get("library_ms")
+        grids = ops.GRIDS_PER_CALL[r["name"]]
+        of_lib = dev["ms"] / lib if lib is not None else None
         by_path = {label: sv["launches"][r["name"]] for label, sv in serves.items()}
         log("timing", f"{r['name']} at {r['where']}'s {r['shape']}: device time kernel "
             f"{dev['ms'] * 1e3:.2f} us, plain {dev['plain_ms'] * 1e3:.2f} us, library "
@@ -727,10 +809,13 @@ def phase_timing(worst: dict, serves: dict) -> list:
             f"{call['plain_ms'] * 1e3:.2f} us"
             + (f", library {call['library_ms'] * 1e3:.2f} us" if lib is not None else "")
             + f"; bound {bound_ms * 1e3:.3f} us ({bound_by}: {r['nbytes']} B, "
-            f"{r['flops']:.4g} FLOP); wrapper calls on the serve paths {by_path}, "
-            f"{ops.GRIDS_PER_CALL[r['name']]} grid(s) each")
+            f"{r['flops']:.4g} FLOP); kernel / library "
+            + (f"{of_lib:.3f}" if of_lib is not None else "none")
+            + f", bound / kernel {bound_ms / dev['ms']:.4f}; wrapper calls on the serve paths "
+            f"{by_path}, {grids} grid(s) each")
         entry = {"ms": dev["ms"], "plain_ms": dev["plain_ms"], "bound_ms": bound_ms,
-                 "bound_by": bound_by, "library_ms": lib, "call_ms": call["ms"],
+                 "bound_by": bound_by, "library_ms": lib, "ms_over_library": of_lib,
+                 "bound_over_ms": bound_ms / dev["ms"], "call_ms": call["ms"],
                  "shape": r["shape"]}
         if r["name"] in out:  # a second shape of the same kernel
             out[r["name"]]["at_" + r["where"]] = entry
@@ -743,7 +828,7 @@ def phase_timing(worst: dict, serves: dict) -> list:
                           "replaces": REPLACES[r["name"]],
                           "launches": serves[main]["launches"][r["name"]],
                           "main_path": main, "launches_by_path": by_path,
-                          "grids_per_call": ops.GRIDS_PER_CALL[r["name"]],
+                          "grids_per_call": grids,
                           "max_abs_err": worst[r["name"]], **entry}
     return list(out.values())
 
@@ -766,14 +851,18 @@ def _profile(what: str, fn) -> None:
         raise RuntimeError(f"{what} {wall * 1e3:.2f} ms wall: the profiler saw no device time")
     log("breakdown", f"{what} {wall * 1e3:.2f} ms wall, device busy {busy_us / 1e3:.2f} ms "
         f"(idle share {1 - busy_us / 1e3 / (wall * 1e3):.3f}), {n_kernels} device ops")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:6]:
-        log("breakdown", f"  {e.self_device_time_total / 1e3:.3f} ms "
-            f"({100 * e.self_device_time_total / busy_us:.1f}% of busy) x{e.count} {e.key[:90]}")
+    ranked = sorted(events, key=lambda e: -e.self_device_time_total)
+    # the top six, and the port's own kernels wherever they rank
+    for i, e in enumerate(ranked):
+        if i < 6 or "repro_torch" in e.key:
+            log("breakdown", f"  {e.self_device_time_total / 1e3:.3f} ms "
+                f"({100 * e.self_device_time_total / busy_us:.1f}% of busy, rank {i + 1}) "
+                f"x{e.count} {e.key[:90]}")
 
 
 def phase_breakdown(arch: str) -> None:
-    """One prefill (hybrid) and one full decode tick of the bf16 serve engine,
-    with the device's busy time from the profiler against the host's wall time."""
+    """One prefill and one full decode tick of the bf16 serve engine, with the
+    device's busy time from the profiler against the host's wall time."""
     import torch
 
     from repro_torch.configs import get_config
@@ -791,10 +880,9 @@ def phase_breakdown(arch: str) -> None:
     for _ in range(2):
         eng.step()
     with torch.no_grad():
-        if cfg.family == "hybrid":
-            toks = torch.randint(1, cfg.vocab, (1, 512), generator=g).to("cuda")
-            _profile(f"{arch} prefill (1 x 512 tokens)",
-                     lambda: DEC.prefill(params, cfg, {"tokens": toks}, max_len=1024))
+        toks = torch.randint(1, cfg.vocab, (1, 512), generator=g).to("cuda")
+        _profile(f"{arch} prefill (1 x 512 tokens)",
+                 lambda: DEC.prefill(params, cfg, {"tokens": toks}, max_len=1024))
         _profile(f"{arch} decode tick (8 slots)", eng.step)
     del eng, params
     torch.cuda.empty_cache()

@@ -10,25 +10,36 @@
 //
 // What bounds it on this card: at the serve shape (S = 512, D = 256, MQA,
 // bf16) the work is ~1.1 GFLOP against ~4.7 MB of traffic, so the roofline
-// bound is memory (about 1.4 us).  Two paths, picked by the input dtype:
-//  * bf16 (serving): mma.sync m16n8k16 on tensor cores with f32 accumulation,
-//    tiles in shared memory, scores and output accumulators in registers.
-//    Without cp.async/TMA double buffering or wgmma, the loads into shared
-//    memory and the block count (64 at the serve shape) bound it.
+// bound is memory (about 1.4 us).  With 64-row query tiles the grid is
+// small (64 blocks at gemma's shape) and the causal work uneven: the block
+// of the last tile walks S/64 key tiles, and its chain of tile loads and
+// products sets the kernel's time.  Three paths, picked by dtype and D:
+//  * bf16, D = 64, 128, 256 (serving): Hopper warp specialisation.  A
+//    producer warp keeps the next K/V tiles in flight by TMA into a ring of
+//    2-4 stages in shared memory (mbarrier completion) while one consumer
+//    warpgroup runs wgmma on the current one: S = Q K^T with both operands
+//    K-major as they arrive, and O += P V with P from registers and V read
+//    MN-major straight from its TMA tile.  Q is loaded once per block.
+//    flash_fwd_wgmma_kernel below.
+//  * bf16, D = 16, 32 (no model at full width uses them): the PR 12 design,
+//    mma.sync m16n8k16 out of shared memory with synchronous loads.
 //  * f32 (parity runs): plain f32 FMAs on CUDA cores out of shared memory, so
 //    the f32 numbers stay within 2e-5 of the plain version (tensor cores
 //    would round the products to tf32).  Bound by shared-memory bandwidth and
 //    FMA issue rate.
+// The bf16 paths round P to bf16 before P V (the usual flash-attention
+// trade); every sum is in f32.
 //
-// What the design does about the TPU original's choices (both paths):
+// What the design keeps from the TPU original's choices (every path):
 //  * One block per (64-row q tile, q head, batch).  An in-block loop over
 //    64-key tiles replaces the Pallas grid's sequential k dimension, and it
 //    stops at the diagonal: tiles wholly above it are never loaded (the Pallas
 //    grid visits and masks them).  Tiles are issued longest first.
-//  * Inputs are read in the model's (B, S, H, D) layout through strides, so
-//    no transpose copies are made; the ragged edge of S is masked here, so no
-//    padding copies either; K/V of a head group are read from the same memory
-//    (no repeated K/V).
+//  * Inputs are read in the model's (B, S, H, D) layout through strides (the
+//    TMA tensor maps carry them), so no transpose copies are made; the
+//    ragged edge of S is masked here (TMA fills rows past S with zeros), so
+//    no padding copies either; K/V of a head group are read from the same
+//    memory (no repeated K/V).
 //  * f32 at D = 256: the q/k/v tiles (+1 column of padding against bank
 //    conflicts) and the P tile take 214,016 bytes of dynamic shared memory,
 //    enabled with cudaFuncSetAttribute.  The 64 x D f32 accumulator lives in
@@ -37,6 +48,7 @@
 #include <cstdint>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace repro_torch {
 namespace {
@@ -183,7 +195,8 @@ __global__ void __launch_bounds__(kNT) flash_fwd_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// bf16: the same algorithm on tensor cores (mma.sync m16n8k16, f32 accumulate)
+// bf16 at D = 16, 32: the same algorithm on tensor cores (mma.sync m16n8k16,
+// f32 accumulate)
 // ---------------------------------------------------------------------------
 //
 // 4 warps, each owning 16 of the block's 64 query rows.  S = Q K^T and O += P V
@@ -193,8 +206,7 @@ __global__ void __launch_bounds__(kNT) flash_fwd_kernel(
 // on registers with 4-lane shuffles and P goes from the score accumulators
 // straight into the A operand of the P V product, rounded to bf16 (the usual
 // flash-attention trade: P in bf16, all sums in f32).  V is stored transposed
-// so that both products read 32-bit pairs.  At D = 256: 104,448 bytes of
-// shared memory (two blocks per SM) and 128 f32 output accumulators a thread.
+// so that both products read 32-bit pairs.
 
 constexpr int kMNT = 128;       // 4 warps x 16 rows
 constexpr int kMBQ = 64;
@@ -205,25 +217,6 @@ constexpr int kVec = 8;         // bf16 per 16-byte global load
 template <int D>
 constexpr size_t mma_smem_bytes() {
   return sizeof(__nv_bfloat16) * (size_t(kMBQ + kMBK) * (D + 8) + size_t(D) * kVLD);
-}
-
-__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// c += a (16x16, row-major fragment) * b (16x8, column-major fragment)
-__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
 template <int D>
@@ -395,6 +388,308 @@ cudaError_t launch_flash_mma(const void* q, const void* k, const void* v, void* 
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16 at D = 64, 128, 256: Hopper warp specialisation (TMA + wgmma)
+// ---------------------------------------------------------------------------
+//
+// 160 threads: one consumer warpgroup (warps 0-3, the block's 64 query rows,
+// 16 a warp) and one producer warp (warp 4).  Every tile is a TMA box of 64
+// rows x 64 bf16 columns (128 bytes, 128-byte swizzle); a 64 x D tile is D/64
+// such chunks, 8 KB each, 1024-byte aligned.
+//  * The producer's lane 0 loads the Q tile once, then walks the key tiles
+//    up to the diagonal, loading K and V into a ring of kWStages stages (4
+//    at D = 64, 3 at 128, 2 at 256: what shared memory holds): it
+//    waits on a stage's `empty` mbarrier (128 consumer arrivals), arms its
+//    `full` mbarrier with the tile's bytes and issues the boxes.  Rows past
+//    S come back as zeros (TMA's out-of-bounds fill), and the scores of keys
+//    past a row are masked below as before.
+//  * The consumers wait on `full`, then S = Q K^T is D/16 wgmma m64n64k16
+//    with both operands K-major in shared memory, as they arrive.  The online
+//    softmax runs on the accumulator registers (the same fragment layout as
+//    mma.sync: rows g and g + 8 of the warp's 16, columns 8j + 2t + {0, 1}),
+//    P is rounded to bf16 into the A registers of O += P V: D/64 x 4 wgmma
+//    m64n64k16 with V read MN-major straight from its TMA tile (no transpose
+//    pass).  Then the stage is released.  While they compute, the producer
+//    has the next tile in flight.
+//  * At D = 256 the consumers hold 128 f32 output accumulators and 32
+//    scores a thread.  Shared memory: Q + 2 x (K + V) = 160 KB, one block
+//    an SM.
+//  * Measured on the card (chip_smoke.py phase 6): a call with one tile
+//    of work takes ~5 us, and each further key tile of the longest block
+//    adds ~1 us at D = 256.  Two changes aimed at that chain measured no
+//    faster and were taken out: issuing the next tile's S beside this
+//    tile's P V (so that the softmax overlaps both products), and splitting
+//    the key range of the longer half of the q tiles over two blocks that
+//    merge through scratch (slower at gemma's and hymba's shapes).
+//    The epilogue multiplies by 1/l: an IEEE division per output element
+//    was the largest cost of a one-tile call at D = 256.
+
+constexpr int kWBQ = 64;                  // query rows per block (one wgmma M)
+constexpr int kWBK = 64;                  // keys per tile (one wgmma N)
+constexpr int kWConsumers = 128;          // one warpgroup
+constexpr int kWThreads = kWConsumers + 32;
+constexpr int kChunkBytes = 64 * 128;     // 64 rows x 64 bf16 columns
+
+// K/V ring depth: as deep as shared memory lets the producer run ahead
+template <int D>
+__host__ __device__ constexpr int wgmma_stages() {
+  return D == 64 ? 4 : D == 128 ? 3 : 2;
+}
+
+template <int D>
+constexpr size_t wgmma_smem_bytes() {
+  // alignment slack + Q + stages x (K + V) + the mbarriers
+  return 1024 + size_t(D / 64) * kChunkBytes * (1 + 2 * wgmma_stages<D>()) +
+         sizeof(uint64_t) * (2 * wgmma_stages<D>() + 1);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWThreads, 1) flash_fwd_wgmma_kernel(
+    __grid_constant__ const CUtensorMap tq, __grid_constant__ const CUtensorMap tk,
+    __grid_constant__ const CUtensorMap tv, __nv_bfloat16* __restrict__ o, int S, int group,
+    float scale, long long o_sb, long long o_ss, long long o_sh) {
+  constexpr int NC = D / 64;                // 64-column chunks
+  constexpr int TILE = NC * kChunkBytes;    // bytes of one 64 x D tile
+  constexpr int kWStages = wgmma_stages<D>();
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* sQ = base;
+  unsigned char* sK = sQ + TILE;                 // kWStages tiles
+  unsigned char* sV = sK + kWStages * TILE;      // kWStages tiles
+  uint64_t* full = reinterpret_cast<uint64_t*>(sV + kWStages * TILE);
+  uint64_t* empty = full + kWStages;
+  uint64_t* qbar = empty + kWStages;
+
+  const int qt = gridDim.x - 1 - blockIdx.x;  // longest tiles first
+  const int h = blockIdx.y, b = blockIdx.z, hk = h / group;
+  const int q0 = qt * kWBQ;
+  // keys at or past q0 + kWBQ lie above the diagonal for every row of the tile
+  const int n_tiles = (min(S, q0 + kWBQ) + kWBK - 1) / kWBK;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    for (int s = 0; s < kWStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kWConsumers);
+    }
+    mbar_init(qbar, 1);
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (tid >= kWConsumers) {  // the producer warp; one lane issues
+    if (tid == kWConsumers) {
+      mbar_expect_tx(qbar, TILE);
+      for (int c = 0; c < NC; ++c) tma_load_4d(sQ + c * kChunkBytes, &tq, qbar, c * 64, h, q0, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int st = j % kWStages;
+        if (j >= kWStages) mbar_wait(&empty[st], (j / kWStages - 1) & 1);
+        mbar_expect_tx(&full[st], 2 * TILE);
+        for (int c = 0; c < NC; ++c) {
+          tma_load_4d(sK + st * TILE + c * kChunkBytes, &tk, &full[st], c * 64, hk, j * kWBK, b);
+          tma_load_4d(sV + st * TILE + c * kChunkBytes, &tv, &full[st], c * 64, hk, j * kWBK, b);
+        }
+      }
+    }
+    return;
+  }
+
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;
+  float acc[NC][32];
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[c][i] = 0.f;
+  // m in base-2 units (max score x scale_log2); l: this thread's partial sums
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+  const float scale_log2 = scale * 1.4426950408889634f;
+  const uint32_t q_addr = smem_u32(sQ);
+
+  mbar_wait(qbar, 0);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int st = j % kWStages;
+    const uint32_t k_addr = smem_u32(sK + st * TILE), v_addr = smem_u32(sV + st * TILE);
+    mbar_wait(&full[st], (j / kWStages) & 1);
+
+    float sc[32] = {};
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      // 16 columns = 32 bytes into the chunk's swizzled 128-byte rows
+      const uint32_t off = (kk / 4) * kChunkBytes + (kk % 4) * 32;
+      wgmma_m64n64k16_ss(sc, sw128_desc(q_addr + off), sw128_desc(k_addr + off), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(sc);
+
+    // online softmax on the fragments: sc[4j + {0,1}] are row0, sc[4j + {2,3}]
+    // row1, columns k0 + 8j + 2t + {0, 1}; a row's 4 lanes reduce by xor 1, 2.
+    // In base 2: m holds max(s) * scale * log2(e), p = 2^(s * scale * log2(e)
+    // - m), one FFMA and one MUFU a score.  Only a tile that reaches past the
+    // block's first row needs the causal mask.
+    const int k0 = j * kWBK;
+    if (k0 + kWBK - 1 > q0) {
+#pragma unroll
+      for (int jn = 0; jn < 8; ++jn)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = k0 + jn * 8 + t * 2 + e;
+          if (col > row0) sc[4 * jn + e] = kNegInf;
+          if (col > row1) sc[4 * jn + 2 + e] = kNegInf;
+        }
+    }
+    float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+    for (int jn = 0; jn < 8; ++jn) {
+      mx0 = fmaxf(mx0, fmaxf(sc[4 * jn], sc[4 * jn + 1]));
+      mx1 = fmaxf(mx1, fmaxf(sc[4 * jn + 2], sc[4 * jn + 3]));
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    const float mn0 = fmaxf(m0, mx0 * scale_log2), mn1 = fmaxf(m1, mx1 * scale_log2);
+    const float c0 = exp2_approx(m0 - mn0), c1 = exp2_approx(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+    for (int jn = 0; jn < 8; ++jn) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        sc[4 * jn + e] = exp2_approx(fmaf(sc[4 * jn + e], scale_log2, -mn0));
+        sc[4 * jn + 2 + e] = exp2_approx(fmaf(sc[4 * jn + 2 + e], scale_log2, -mn1));
+        ps0 += sc[4 * jn + e];
+        ps1 += sc[4 * jn + 2 + e];
+      }
+    }
+    l0 = l0 * c0 + ps0;
+    l1 = l1 * c1 + ps1;
+    // rescale the output only where a row's max moved (a factor of exactly
+    // 1 leaves it as it is): up to 128 multiplies a thread at D = 256
+    if (!__all_sync(0xffffffffu, c0 == 1.f && c1 == 1.f)) {
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+#pragma unroll
+        for (int jn = 0; jn < 8; ++jn) {
+          acc[c][4 * jn] *= c0;
+          acc[c][4 * jn + 1] *= c0;
+          acc[c][4 * jn + 2] *= c1;
+          acc[c][4 * jn + 3] *= c1;
+        }
+    }
+
+    // O += P V: P's A fragment for keys 16kk..16kk+15 is score n-tiles 2kk
+    // and 2kk+1; V's rows for them start 16kk rows = 2048 bytes into a chunk
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      pa[kk][0] = pack_bf16(sc[8 * kk], sc[8 * kk + 1]);
+      pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+      pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+      pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+    }
+#pragma unroll
+    for (int c = 0; c < NC; ++c) reg_fence(acc[c]);
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_m64n64k16_rs_tn(acc[c], pa[kk][0], pa[kk][1], pa[kk][2], pa[kk][3],
+                              sw128_desc(v_addr + c * kChunkBytes + kk * 2048));
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int c = 0; c < NC; ++c) reg_fence(acc[c]);
+    mbar_arrive(&empty[st]);  // this thread's reads of the stage are done
+  }
+
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  // one reciprocal a row: an IEEE division per output element was the
+  // largest cost of a one-tile call at D = 256
+  const float r0 = 1.f / (l0 == 0.f ? 1.f : l0), r1 = 1.f / (l1 == 0.f ? 1.f : l1);
+  __nv_bfloat16* ob = o + b * o_sb + h * o_sh;
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int jn = 0; jn < 8; ++jn) {
+      const int col = c * 64 + jn * 8 + t * 2;
+      if (row0 < S)
+        *reinterpret_cast<__nv_bfloat162*>(ob + row0 * o_ss + col) =
+            __floats2bfloat162_rn(acc[c][4 * jn] * r0, acc[c][4 * jn + 1] * r0);
+      if (row1 < S)
+        *reinterpret_cast<__nv_bfloat162*>(ob + row1 * o_ss + col) =
+            __floats2bfloat162_rn(acc[c][4 * jn + 2] * r1, acc[c][4 * jn + 3] * r1);
+    }
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime (no link to libcuda)
+using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiledFn>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A (B, S, H, D) bf16 tensor with unit stride on D as a 4-d tensor map
+// (D, H, S, B), boxes of 64 columns x 1 head x 64 rows x 1 batch, 128-byte
+// swizzle, zeros out of bounds.  Strides in elements.
+cudaError_t tensor_map_bshd(CUtensorMap* map, const void* ptr, int B, int S, int H, int D,
+                            long long sb, long long ss, long long sh) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorInitializationError;
+  const cuuint64_t dims[4] = {cuuint64_t(D), cuuint64_t(H), cuuint64_t(S), cuuint64_t(B)};
+  const cuuint64_t strides[3] = {cuuint64_t(sh) * 2, cuuint64_t(ss) * 2, cuuint64_t(sb) * 2};
+  const cuuint32_t box[4] = {64, 1, 64, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+                            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int D>
+cudaError_t launch_flash_wgmma(const void* q, const void* k, const void* v, void* o, int B,
+                               int S, int Hq, int Hkv, const long long* st,
+                               cudaStream_t stream) {
+  auto kern = flash_fwd_wgmma_kernel<D>;
+  const size_t smem = wgmma_smem_bytes<D>();
+  static bool smem_set[kMaxDevices] = {};  // one per instantiation
+  cudaError_t err = allow_smem(kern, smem, smem_set);
+  if (err != cudaSuccess) return err;
+  CUtensorMap tq, tk, tv;
+  if ((err = tensor_map_bshd(&tq, q, B, S, Hq, D, st[0], st[1], st[2])) != cudaSuccess ||
+      (err = tensor_map_bshd(&tk, k, B, S, Hkv, D, st[3], st[4], st[5])) != cudaSuccess ||
+      (err = tensor_map_bshd(&tv, v, B, S, Hkv, D, st[6], st[7], st[8])) != cudaSuccess)
+    return err;
+  const dim3 grid((S + kWBQ - 1) / kWBQ, Hq, B);
+  kern<<<grid, kWThreads, smem, stream>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(o), S,
+                                          Hq / Hkv, 1.0f / sqrtf(static_cast<float>(D)),
+                                          st[9], st[10], st[11]);
+  return cudaGetLastError();
+}
+
 template <int D>
 cudaError_t launch_flash(const void* q, const void* k, const void* v, void* o, int B, int S,
                          int Hq, int Hkv, const long long* st, cudaStream_t stream) {
@@ -428,9 +723,9 @@ cudaError_t dispatch_flash(int dtype, const void* q, const void* k, const void* 
     switch (D) {
       case 16: return launch_flash_mma<16>(q, k, v, o, B, S, Hq, Hkv, st, stream);
       case 32: return launch_flash_mma<32>(q, k, v, o, B, S, Hq, Hkv, st, stream);
-      case 64: return launch_flash_mma<64>(q, k, v, o, B, S, Hq, Hkv, st, stream);
-      case 128: return launch_flash_mma<128>(q, k, v, o, B, S, Hq, Hkv, st, stream);
-      case 256: return launch_flash_mma<256>(q, k, v, o, B, S, Hq, Hkv, st, stream);
+      case 64: return launch_flash_wgmma<64>(q, k, v, o, B, S, Hq, Hkv, st, stream);
+      case 128: return launch_flash_wgmma<128>(q, k, v, o, B, S, Hq, Hkv, st, stream);
+      case 256: return launch_flash_wgmma<256>(q, k, v, o, B, S, Hq, Hkv, st, stream);
       default: return cudaErrorInvalidValue;
     }
   }

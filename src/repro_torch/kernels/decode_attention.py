@@ -3,8 +3,14 @@ the port of the Pallas TPU kernel ``repro.kernels.decode_attention._decode_kerne
 
 The cache is read in place in the model's (B, M, Hkv, D) layout.  The slots
 are split across blocks (flash-decoding) so that a small batch with few KV
-heads still fills the card; the split kernel writes partial (m, l, acc) to
-f32 scratch allocated here, and a second kernel combines them.
+heads still fills the card; each block writes a partial (m, l, acc) to f32
+scratch allocated here.
+
+* bf16 (serving): ``n_splits`` picks the number of splits from (B, Hkv, SM
+  count); each block sizes its own range from ``lengths[b]`` on the device.
+* f32 (parity runs): ``split_plan`` cuts M into fixed splits.
+
+Either way a second grid combines the partials.
 """
 from __future__ import annotations
 
@@ -16,9 +22,11 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import DTYPES, HEAD_DIMS
 
-SLOT_TILE = 32      # slots per tile inside a split (kBN in the .cu)
+SLOT_TILE = 32      # slots per tile inside a split (kBN, kDTS in the .cu)
 MAX_GROUP = 16      # most query heads per KV head (kGMax in the .cu)
-BLOCKS_PER_SM = 2   # aim for this many split blocks per SM
+MAX_SPLIT = 256     # most splits of the bf16 path
+BLOCKS_PER_SM = 2   # f32: aim for this many split blocks per SM
+BF16_BLOCKS_PER_SM = 1  # bf16: the same aim (one block an SM measured best)
 
 
 def check_args(q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
@@ -46,6 +54,9 @@ def check_args(q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
     for name, t in (("q", q), ("cache_k", cache_k), ("cache_v", cache_v)):
         if t.stride(3) != 1:
             raise ValueError(f"{name} needs unit stride on D; strides {t.stride()}")
+        # the bf16 kernel loads rows in 16-byte vectors (cp.async)
+        if t.dtype == torch.bfloat16 and (t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3])):
+            raise ValueError(f"bf16 {name} needs 16-byte aligned rows; strides {t.stride()}")
     if not lengths.is_contiguous():
         raise ValueError("lengths must be contiguous")
 
@@ -56,10 +67,17 @@ def _sm_count(device_index) -> int:
 
 
 def split_plan(batch: int, hkv: int, m: int, n_sm: int):
-    """(slots per split, number of splits): enough blocks to fill the card."""
+    """f32 path: (slots per split, number of splits) over the whole cache,
+    enough blocks to fill the card."""
     want = max(1, math.ceil(BLOCKS_PER_SM * n_sm / (batch * hkv)))
     split_len = SLOT_TILE * math.ceil(math.ceil(m / want) / SLOT_TILE)
     return split_len, math.ceil(m / split_len)
+
+
+def n_splits(batch: int, hkv: int, n_sm: int) -> int:
+    """bf16 path: splits per (b, kv head), from the grid's other dimensions
+    and the card alone (reading the lengths here would cost a sync)."""
+    return max(1, min(MAX_SPLIT, math.ceil(BF16_BLOCKS_PER_SM * n_sm / (batch * hkv))))
 
 
 def decode_attention_bmhd(q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
@@ -74,7 +92,11 @@ def decode_attention_bmhd(q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch
     out = torch.empty((b, 1, hq, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    split_len, n_split = split_plan(b, hkv, m, _sm_count(q.device.index))
+    n_sm = _sm_count(q.device.index)
+    if q.dtype == torch.bfloat16:
+        split_len, n_split = 0, n_splits(b, hkv, n_sm)
+    else:
+        split_len, n_split = split_plan(b, hkv, m, n_sm)
     part_m = torch.empty((b, hq, n_split), dtype=torch.float32, device=q.device)
     part_l = torch.empty_like(part_m)
     part_acc = torch.empty((b, hq, n_split, d), dtype=torch.float32, device=q.device)

@@ -16,6 +16,11 @@ from repro_torch.kernels import _build, ops
 from repro_torch.kernels import decode_attention as kdec
 from repro_torch.kernels import ref as R
 
+# The test workers share the machine's cores: one intra-op thread per worker
+# keeps torch from oversubscribing them, beside the wall-clock tests of the
+# other files.
+torch.set_num_threads(1)
+
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 
 
@@ -133,7 +138,7 @@ def _qkv(d=32, dtype=torch.float32):
 
 
 @pytest.mark.parametrize("bad", ["head_dim", "dtype", "mixed_dtype", "stride", "groups",
-                                 "seq", "bf16_rows"])
+                                 "seq", "bf16_rows", "bf16_base"])
 def test_flash_attention_rejects_what_the_kernel_does_not_take(bad):
     q, k, v = _qkv()
     if bad == "head_dim":
@@ -151,15 +156,21 @@ def test_flash_attention_rejects_what_the_kernel_does_not_take(bad):
     elif bad == "bf16_rows":  # the bf16 kernel loads 16-byte row vectors
         q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
         q = torch.zeros(1, 8, 4, 36, dtype=torch.bfloat16)[..., :32]
+    elif bad == "bf16_base":  # TMA needs a 16-byte aligned base address
+        q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+        k = torch.zeros(2 * k.numel() + 8, dtype=torch.bfloat16)[4:4 + k.numel()].view(k.shape)
     with pytest.raises((ValueError, TypeError)):
         ops.flash_attention(q, k, v)
 
 
-@pytest.mark.parametrize("bad", ["lengths_dtype", "lengths_shape", "q_len", "group"])
+@pytest.mark.parametrize("bad", ["lengths_dtype", "lengths_shape", "q_len", "group",
+                                 "bf16_rows", "bf16_base"])
 def test_decode_attention_rejects_what_the_kernel_does_not_take(bad):
     q = torch.randn(2, 1, 4, 32)
     ck = torch.randn(2, 16, 2, 32)
     lengths = torch.tensor([3, 16], dtype=torch.int32)
+    if bad.startswith("bf16"):  # the bf16 kernel loads 16-byte row vectors by cp.async
+        q, ck = q.to(torch.bfloat16), ck.to(torch.bfloat16)
     if bad == "lengths_dtype":
         lengths = lengths.long()
     elif bad == "lengths_shape":
@@ -169,8 +180,24 @@ def test_decode_attention_rejects_what_the_kernel_does_not_take(bad):
     elif bad == "group":
         q = torch.randn(2, 1, 34, 32)
         ck = torch.randn(2, 16, 2, 32)
+    elif bad == "bf16_rows":  # a slot stride of 36 elements: rows not 16-byte aligned
+        ck = torch.zeros(2, 16, 2, 36, dtype=torch.bfloat16)[..., :32]
+        ck = ck.as_strided((2, 16, 2, 32), (16 * 36 * 2 // 2, 36, 18, 1))
+    elif bad == "bf16_base":
+        q = torch.zeros(q.numel() + 4, dtype=torch.bfloat16)[4:].view(q.shape)
     with pytest.raises((ValueError, TypeError)):
         ops.decode_attention(q, ck, ck.clone(), lengths)
+
+
+def test_decode_attention_takes_aligned_bf16_views():
+    """The model's bf16 cache is a view of one (L, B, M, Hkv, D) buffer, and q a
+    view of a projection: 16-byte aligned rows pass the bf16 checks."""
+    cache = torch.zeros(2, 2, 16, 2, 32, dtype=torch.bfloat16)
+    q = torch.zeros(2, 1, 4, 32, dtype=torch.bfloat16)
+    lengths = torch.tensor([3, 16], dtype=torch.int32)
+    kdec.check_args(q, cache[1], cache[0], lengths)
+    out = ops.decode_attention(q, cache[1], cache[0], lengths)
+    assert out.shape == q.shape and out.dtype == torch.bfloat16
 
 
 def test_cpu_path_counts_no_launch():
@@ -260,8 +287,37 @@ def test_ssm_scans_take_strided_c_and_b():
     assert torch.equal(y0, y1)
 
 
-@pytest.mark.parametrize("b,hkv,m", [(8, 1, 1024), (3, 2, 300), (1, 1, 7), (64, 8, 32768)])
+def _split_range(length: int, m: int, n_split: int, sp: int):
+    """The slots [start, end) that block ``sp`` of a row reads on K2's bf16
+    path: the arithmetic of ``decode_bf16_kernel`` in csrc/decode_attention.cu."""
+    n = max(0, min(length, m))
+    chunk = -(-n // n_split)
+    start = min(sp * chunk, n)
+    return start, min(start + chunk, n)
+
+
+@pytest.mark.parametrize("b,hkv,m", [(8, 1, 1024), (8, 5, 1024), (3, 2, 300), (1, 1, 7),
+                                     (64, 8, 32768), (2, 1, 512)])
 def test_decode_split_plan_covers_the_cache(b, hkv, m):
+    """The bf16 plan: n_split from (B, Hkv, SM count) alone, each block's
+    range sized on the device from lengths[b].  Every slot below the length
+    falls in exactly one split, no block reads at or past it, whatever the
+    length: 0, 1, below n_split, M, and past M (clamped)."""
+    n_split = kdec.n_splits(b, hkv, n_sm=132)
+    assert 1 <= n_split <= kdec.MAX_SPLIT
+    for length in sorted({0, 1, 2, n_split - 1, n_split, n_split + 1, m // 2 + 3, m - 1, m,
+                          m + 5}):
+        covered = []
+        for sp in range(n_split):
+            start, end = _split_range(length, m, n_split, sp)
+            assert 0 <= start <= end <= min(length, m)
+            covered.extend(range(start, end))
+        assert covered == list(range(min(max(length, 0), m)))
+
+
+@pytest.mark.parametrize("b,hkv,m", [(8, 1, 1024), (3, 2, 300), (1, 1, 7), (64, 8, 32768)])
+def test_decode_f32_split_plan_covers_the_cache(b, hkv, m):
+    """The f32 path keeps its fixed splits over M (and with them its sums)."""
     split_len, n_split = kdec.split_plan(b, hkv, m, n_sm=132)
     assert split_len % kdec.SLOT_TILE == 0
     assert split_len * n_split >= m > split_len * (n_split - 1)
@@ -276,6 +332,7 @@ def test_build_needs_nvcc_and_import_builds_nothing(monkeypatch, tmp_path):
         _build.nvcc_path()
     names = {p.name for p in _build.sources()}
     assert names == {"flash_attention.cu", "decode_attention.cu", "ssm_scan.cu"}
+    assert (_build.CSRC / "hopper.cuh").is_file()  # in the build's digest with the sources
     for name in ("repro_ssm_scan_fwd", "repro_ssm_scan_fused_fwd"):
         assert name in _build.SIGNATURES
     assert "-gencode" in _build.NVCC_FLAGS and "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
