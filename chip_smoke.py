@@ -142,14 +142,15 @@ def call_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 20, warmup: int = 5, attempts: int = 3) -> float:
+def device_ms(fn, iters: int = 20, warmup: int = 5) -> float:
     """Mean device time per call of fn(): the profiler's sum of the device
     time of every kernel and copy the calls launched, over ``iters``.  Now
     and then a profiling session records no device activity at all; such a
-    session is repeated, up to ``attempts`` sessions in all."""
+    session is repeated, up to three sessions in all."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    attempts = 3
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -228,8 +229,8 @@ def phase_device():
     return smi
 
 
-# a source name in a mangled symbol is its length, then the name
-NAME_AT = re.compile(r"(?=(\d+)([A-Za-z_]\w*))")
+# a kernel's name and template arguments in a demangled symbol
+KERNEL_NAME = re.compile(r"\w+_kernel(<[^<>]*>)?")
 # SASS opcodes that show each redesigned kernel's Hopper path: wgmma
 # (HGMMA), TMA tile loads (UTMALDG), mbarriers (SYNCS), cp.async (LDGSTS),
 # mma.sync (HMMA), ldmatrix (LDSM)
@@ -238,14 +239,19 @@ SASS_NEEDS = {"flash_fwd_wgmma_kernel": ("HGMMA", "UTMALDG", "SYNCS"),
               "decode_bf16_kernel": ("LDGSTS", "HMMA", "LDSM")}
 
 
-def _short(mangled: str) -> str:
-    """A kernel's name and first template int from its mangled symbol."""
-    for m in NAME_AT.finditer(mangled):
-        n, rest = int(m.group(1)), m.group(2)
-        if len(rest) >= n and rest[:n].endswith("_kernel"):
-            arg = re.match(r"I\w*?Li(\d+)E", rest[n:])
-            return rest[:n] + (f"<{arg.group(1)}>" if arg else "")
-    return mangled
+def _short_names(mangled: list[str]) -> dict[str, str]:
+    """Each mangled kernel symbol -> its name and template arguments, through
+    the toolkit's demangler."""
+    from repro_torch.kernels import _build
+
+    cufilt = Path(_build.nvcc_path()).parent / "cu++filt"
+    out = subprocess.run([str(cufilt)], input="\n".join(mangled) + "\n", capture_output=True,
+                         text=True, timeout=60, check=True).stdout.splitlines()
+    names = {}
+    for m, d in zip(mangled, out, strict=True):
+        short = KERNEL_NAME.search(d)
+        names[m] = short.group(0) if short else d
+    return names
 
 
 def phase_build() -> None:
@@ -254,20 +260,23 @@ def phase_build() -> None:
     path, build_log, secs = _build.build()
     log("build", f"{len(_build.sources())} sources -> {path.relative_to(ROOT)} in {secs:.1f}s "
         f"({' '.join(_build.NVCC_FLAGS)})")
+    entries = [line.split("'")[1] for line in build_log.splitlines()
+               if "Compiling entry function" in line]
+    sass = subprocess.run([str(Path(_build.nvcc_path()).parent / "cuobjdump"), "-sass", str(path)],
+                          capture_output=True, text=True, timeout=300, check=True).stdout
+    blocks = sass.split("Function : ")[1:]
+    names = _short_names(entries + [block.split(None, 1)[0] for block in blocks])
     for line in build_log.splitlines():
         if "Compiling entry function" in line:
-            log("build", _short(line.split("'")[1]))
+            log("build", names[line.split("'")[1]])
         elif ("registers" in line or "spill" in line or "warning" in line.lower()
               or line.startswith("==")):
             log("build", line.strip())
     _build.library()
     # the machine code of the redesigned kernels, opcode counts per kernel
-    cuobjdump = Path(_build.nvcc_path()).parent / "cuobjdump"
-    sass = subprocess.run([str(cuobjdump), "-sass", str(path)], capture_output=True, text=True,
-                          timeout=300, check=True).stdout
     seen = set()
-    for block in sass.split("Function : ")[1:]:
-        name = _short(block.split(None, 1)[0])
+    for block in blocks:
+        name = names[block.split(None, 1)[0]]
         kind = name.split("<")[0]
         if kind not in SASS_NEEDS:
             continue
@@ -407,7 +416,7 @@ def phase_kernels() -> dict:
                 f"(atol = rtol = {TOL[name]}) ok")
         # a row of length 0 (its output is 0: the plain version, masking with
         # -inf, gives NaN there), G = 16, and lengths below the number of
-        # splits (at B=8, Hkv=1 on 132 SMs: 17 in bf16, 32 in f32)
+        # splits (17 at B=8, Hkv=1 on 132 SMs)
         for shape, lengths in [((8, 1024, 8, 1, 256), [1, 17, 64, 300, 511, 512, 1000, 1024]),
                                ((3, 300, 8, 2, 128), [300, 129, 33]),
                                ((8, 1024, 25, 5, 64), [1, 33, 100, 512, 513, 530, 777, 1024]),

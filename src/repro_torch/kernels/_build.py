@@ -33,7 +33,7 @@ _L = ctypes.c_longlong
 # c_void_p, ints as c_int, strides as c_longlong.
 SIGNATURES: Dict[str, List] = {
     "repro_flash_attention_fwd": [_P] * 4 + [_I] * 5 + [_L] * 12 + [_I, _P],
-    "repro_decode_attention_fwd": [_P] * 8 + [_I] * 7 + [_L] * 10 + [_I, _P],
+    "repro_decode_attention_fwd": [_P] * 8 + [_I] * 6 + [_L] * 10 + [_I, _P],
     "repro_ssm_scan_fwd": [_P] * 5 + [_I] * 4 + [_L] * 2 + [_P],
     "repro_ssm_scan_fused_fwd": [_P] * 7 + [_I] * 4 + [_L] * 8 + [_P],
 }

@@ -18,19 +18,22 @@
 // grid gives only B * Hkv programs (8 for gemma, whose Hkv = 1), which would
 // leave most of the 132 SMs idle, so both paths split the slots over blocks
 // (flash-decoding) and merge the partials.  Two paths, picked by dtype:
-//  * bf16 (serving): decode_bf16_kernel below.  The splits are sized on the
-//    device from lengths[b], so every block has work whatever M is; 16-byte
-//    cp.async loads into a ring of 3-4 stages; products on tensor cores from
-//    registers (mma.sync, the G heads padded to 16 rows); P is rounded to
-//    bf16 before P V (every sum stays in f32: the JAX kernel keeps P in f32);
-//    a second grid merges the partials, a block per (b, q head).
-//  * f32 (parity runs): the PR 12 design, kept so the f32 numbers do not
-//    move.  Splits of a fixed split_len over M; each block streams its range
-//    in 32-slot tiles through an f32 staging copy in shared memory with an
-//    online softmax on CUDA cores and writes a partial (m, l, acc) in f32 to
+//  * bf16 (serving): decode_bf16_kernel below.  16-byte cp.async loads into
+//    a ring of 3-4 stages; products on tensor cores from registers
+//    (mma.sync, the G heads padded to 16 rows); P is rounded to bf16 before
+//    P V (every sum stays in f32: the JAX kernel keeps P in f32); a second
+//    grid merges the partials, a block per (b, q head).
+//  * f32 (parity runs): the first design, whose per-tile arithmetic the
+//    parity runs are held to.  Each block streams its range in 32-slot
+//    tiles through an f32 staging copy in shared memory with an online
+//    softmax on CUDA cores and writes a partial (m, l, acc) in f32 to
 //    scratch; decode_combine_kernel, a second grid, merges them.
 // Both paths:
-//  * Each block reads lengths[b] itself (replaces the SMEM scalar prefetch).
+//  * The host picks n_split from (B, Hkv, SM count) alone; each block reads
+//    lengths[b] itself (replaces the SMEM scalar prefetch) and takes the
+//    slots [sp * c, min((sp + 1) * c, len)), c = ceil(len / n_split), len =
+//    lengths[b] clamped to [0, M] (split_range in decode_attention.py), so
+//    every block of a row with len >= n_split has work whatever M is.
 //    A split with no valid slot loads nothing and writes l = 0, which the
 //    merge skips.  Slots past lengths[b] are never read, so NaN left in
 //    stale slots cannot reach the output (no NaN is multiplied by 0).
@@ -55,9 +58,9 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kNT) decode_split_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const int* __restrict__ lengths, float* __restrict__ part_m, float* __restrict__ part_l,
-    float* __restrict__ part_acc, int M, int G, int split_len, float scale,
-    long long q_sb, long long q_sh, long long k_sb, long long k_sm, long long k_sh,
-    long long v_sb, long long v_sm, long long v_sh) {
+    float* __restrict__ part_acc, int M, int G, float scale, long long q_sb, long long q_sh,
+    long long k_sb, long long k_sm, long long k_sh, long long v_sb, long long v_sm,
+    long long v_sh) {
   constexpr int LD = D + 1;
   constexpr int PAIRS = kGMax * D / kNT;  // (head, column) accumulators per thread
   extern __shared__ float smem[];
@@ -72,9 +75,10 @@ __global__ void __launch_bounds__(kNT) decode_split_kernel(
   const int b = blockIdx.x, h = blockIdx.y, sp = blockIdx.z;
   const int Hq = gridDim.y * G, n_split = gridDim.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int len = min(lengths[b], M);
-  const int start = sp * split_len;
-  const int end = min(start + split_len, len);
+  const int len = max(0, min(lengths[b], M));
+  const int chunk = (len + n_split - 1) / n_split;  // split_range in decode_attention.py
+  const int start = min(sp * chunk, len);
+  const int end = min(start + chunk, len);
   const long long part0 = (static_cast<long long>(b) * Hq + h * G) * n_split + sp;
 
   if (end <= start) {  // wholly past lengths[b]: load nothing
@@ -191,7 +195,7 @@ __global__ void decode_combine_kernel(const float* __restrict__ part_m,
 template <typename T, int D>
 cudaError_t launch_decode(const void* q, const void* k, const void* v, const int* lengths,
                           float* part_m, float* part_l, float* part_acc, void* o, int B, int M,
-                          int Hq, int Hkv, int split_len, int n_split, const long long* st,
+                          int Hq, int Hkv, int n_split, const long long* st,
                           cudaStream_t stream) {
   const int G = Hq / Hkv;
   auto kern = decode_split_kernel<T, D>;
@@ -201,7 +205,7 @@ cudaError_t launch_decode(const void* q, const void* k, const void* v, const int
   if (err != cudaSuccess) return err;
   kern<<<dim3(B, Hkv, n_split), kNT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), lengths,
-      part_m, part_l, part_acc, M, G, split_len, 1.0f / sqrtf(static_cast<float>(D)),
+      part_m, part_l, part_acc, M, G, 1.0f / sqrtf(static_cast<float>(D)),
       st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7]);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -217,10 +221,8 @@ cudaError_t launch_decode(const void* q, const void* k, const void* v, const int
 // registers, a one-pass combine grid
 // ---------------------------------------------------------------------------
 //
-// Grid (n_split, Hkv, B), 128 threads.  Block sp of (b, kv head h) takes the
-// slots [sp * c, min((sp + 1) * c, len)), c = ceil(len / n_split), len =
-// lengths[b] clamped to [0, M]: every block of a row with len >= n_split has
-// work whatever M is.  Its slots stream through shared memory in 32-slot
+// Grid (n_split, Hkv, B), 128 threads.  Block sp of (b, kv head h) takes
+// its slots as above.  They stream through shared memory in 32-slot
 // tiles of K and V: 16-byte cp.async per thread, zero-filled past
 // the block's last slot (nothing past it is read), rows padded by 16 bytes so
 // that the fragment loads below are free of bank conflicts.  The ring has
@@ -288,7 +290,7 @@ __global__ void __launch_bounds__(kDNT) decode_bf16_kernel(
     }
   }
   const int len = max(0, min(lengths[b], M));
-  const int chunk = (len + n_split - 1) / n_split;
+  const int chunk = (len + n_split - 1) / n_split;  // split_range in decode_attention.py
   const int start = min(sp * chunk, len);
   const int end = min(start + chunk, len);
   const long long grp = static_cast<long long>(b) * Hkv + h;
@@ -526,14 +528,13 @@ cudaError_t launch_decode_bf16(const void* q, const void* k, const void* v, cons
 template <typename T>
 cudaError_t dispatch_decode(const void* q, const void* k, const void* v, const int* lengths,
                             float* pm, float* pl, float* pa, void* o, int B, int M, int Hq,
-                            int Hkv, int D, int split_len, int n_split, const long long* st,
-                            cudaStream_t s) {
+                            int Hkv, int D, int n_split, const long long* st, cudaStream_t s) {
   switch (D) {
-    case 16: return launch_decode<T, 16>(q, k, v, lengths, pm, pl, pa, o, B, M, Hq, Hkv, split_len, n_split, st, s);
-    case 32: return launch_decode<T, 32>(q, k, v, lengths, pm, pl, pa, o, B, M, Hq, Hkv, split_len, n_split, st, s);
-    case 64: return launch_decode<T, 64>(q, k, v, lengths, pm, pl, pa, o, B, M, Hq, Hkv, split_len, n_split, st, s);
-    case 128: return launch_decode<T, 128>(q, k, v, lengths, pm, pl, pa, o, B, M, Hq, Hkv, split_len, n_split, st, s);
-    case 256: return launch_decode<T, 256>(q, k, v, lengths, pm, pl, pa, o, B, M, Hq, Hkv, split_len, n_split, st, s);
+    case 16: return launch_decode<T, 16>(q, k, v, lengths, pm, pl, pa, o, B, M, Hq, Hkv, n_split, st, s);
+    case 32: return launch_decode<T, 32>(q, k, v, lengths, pm, pl, pa, o, B, M, Hq, Hkv, n_split, st, s);
+    case 64: return launch_decode<T, 64>(q, k, v, lengths, pm, pl, pa, o, B, M, Hq, Hkv, n_split, st, s);
+    case 128: return launch_decode<T, 128>(q, k, v, lengths, pm, pl, pa, o, B, M, Hq, Hkv, n_split, st, s);
+    case 256: return launch_decode<T, 256>(q, k, v, lengths, pm, pl, pa, o, B, M, Hq, Hkv, n_split, st, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -544,14 +545,13 @@ cudaError_t dispatch_decode(const void* q, const void* k, const void* v, const i
 // q: (B,1,Hq,D) through strides (q_sb, q_sh); k/v: (B,M,Hkv,D) through
 // strides (sb, sm, sh); lengths: (B,) int32; o: (B,1,Hq,D) through (o_sb,
 // o_sh); each with unit stride on D.  part_m/part_l: (B,Hq,n_split) f32 and
-// part_acc: (B,Hq,n_split,D) f32 scratch.  f32: splits are split_len slots
-// wide, n_split * split_len >= M.  bf16: splits are sized from lengths on
-// the device (split_len is not read).  Two grids either way, split and
-// combine.  Returns the CUDA error of the launches.
+// part_acc: (B,Hq,n_split,D) f32 scratch.  The splits are sized from
+// lengths on the device.  Two grids, split and combine.  Returns the CUDA
+// error of the launches.
 extern "C" int repro_decode_attention_fwd(
     const void* q, const void* k, const void* v, const void* lengths, void* part_m,
-    void* part_l, void* part_acc, void* o, int B, int M, int Hq, int Hkv, int D, int split_len,
-    int n_split, long long q_sb, long long q_sh, long long k_sb, long long k_sm, long long k_sh,
+    void* part_l, void* part_acc, void* o, int B, int M, int Hq, int Hkv, int D, int n_split,
+    long long q_sb, long long q_sh, long long k_sb, long long k_sm, long long k_sh,
     long long v_sb, long long v_sm, long long v_sh, long long o_sb, long long o_sh, int dtype,
     void* stream) {
   using namespace repro_torch;
@@ -564,11 +564,8 @@ extern "C" int repro_decode_attention_fwd(
   float* pm = static_cast<float*>(part_m);
   float* pl = static_cast<float*>(part_l);
   float* pa = static_cast<float*>(part_acc);
-  if (dtype == kF32) {
-    if (split_len <= 0 || static_cast<long long>(split_len) * n_split < M)
-      return cudaErrorInvalidValue;
-    return dispatch_decode<float>(q, k, v, len, pm, pl, pa, o, B, M, Hq, Hkv, D, split_len, n_split, st, s);
-  }
+  if (dtype == kF32)
+    return dispatch_decode<float>(q, k, v, len, pm, pl, pa, o, B, M, Hq, Hkv, D, n_split, st, s);
   if (dtype == kBF16) {
     switch (D) {
       case 16: return launch_decode_bf16<16>(q, k, v, len, pm, pl, pa, o, B, M, Hq, Hkv, n_split, st, s);

@@ -3,14 +3,10 @@ the port of the Pallas TPU kernel ``repro.kernels.decode_attention._decode_kerne
 
 The cache is read in place in the model's (B, M, Hkv, D) layout.  The slots
 are split across blocks (flash-decoding) so that a small batch with few KV
-heads still fills the card; each block writes a partial (m, l, acc) to f32
-scratch allocated here.
-
-* bf16 (serving): ``n_splits`` picks the number of splits from (B, Hkv, SM
-  count); each block sizes its own range from ``lengths[b]`` on the device.
-* f32 (parity runs): ``split_plan`` cuts M into fixed splits.
-
-Either way a second grid combines the partials.
+heads still fills the card: ``n_splits`` picks the number of splits from
+(B, Hkv, SM count), and each block sizes its own range from ``lengths[b]`` on
+the device (``split_range``).  Each block writes a partial (m, l, acc) to f32
+scratch allocated here, and a second grid combines the partials.
 """
 from __future__ import annotations
 
@@ -22,11 +18,8 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import DTYPES, HEAD_DIMS
 
-SLOT_TILE = 32      # slots per tile inside a split (kBN, kDTS in the .cu)
 MAX_GROUP = 16      # most query heads per KV head (kGMax in the .cu)
-MAX_SPLIT = 256     # most splits of the bf16 path
-BLOCKS_PER_SM = 2   # f32: aim for this many split blocks per SM
-BF16_BLOCKS_PER_SM = 1  # bf16: the same aim (one block an SM measured best)
+MAX_SPLIT = 256     # most splits
 
 
 def check_args(q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
@@ -66,18 +59,21 @@ def _sm_count(device_index) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-def split_plan(batch: int, hkv: int, m: int, n_sm: int):
-    """f32 path: (slots per split, number of splits) over the whole cache,
-    enough blocks to fill the card."""
-    want = max(1, math.ceil(BLOCKS_PER_SM * n_sm / (batch * hkv)))
-    split_len = SLOT_TILE * math.ceil(math.ceil(m / want) / SLOT_TILE)
-    return split_len, math.ceil(m / split_len)
-
-
 def n_splits(batch: int, hkv: int, n_sm: int) -> int:
-    """bf16 path: splits per (b, kv head), from the grid's other dimensions
-    and the card alone (reading the lengths here would cost a sync)."""
-    return max(1, min(MAX_SPLIT, math.ceil(BF16_BLOCKS_PER_SM * n_sm / (batch * hkv))))
+    """Splits per (b, kv head): a block an SM, from the grid's other
+    dimensions and the card alone (reading the lengths here would cost a
+    sync)."""
+    return max(1, min(MAX_SPLIT, math.ceil(n_sm / (batch * hkv))))
+
+
+def split_range(length: int, m: int, n_split: int, sp: int) -> tuple[int, int]:
+    """The slots [start, end) that split ``sp`` of a row with ``lengths[b] ==
+    length`` reads.  This is the kernels' contract: both kernels of
+    csrc/decode_attention.cu compute it on the device in the same way."""
+    n = max(0, min(length, m))
+    chunk = -(-n // n_split)
+    start = min(sp * chunk, n)
+    return start, min(start + chunk, n)
 
 
 def decode_attention_bmhd(q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
@@ -92,11 +88,7 @@ def decode_attention_bmhd(q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch
     out = torch.empty((b, 1, hq, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    n_sm = _sm_count(q.device.index)
-    if q.dtype == torch.bfloat16:
-        split_len, n_split = 0, n_splits(b, hkv, n_sm)
-    else:
-        split_len, n_split = split_plan(b, hkv, m, n_sm)
+    n_split = n_splits(b, hkv, _sm_count(q.device.index))
     part_m = torch.empty((b, hq, n_split), dtype=torch.float32, device=q.device)
     part_l = torch.empty_like(part_m)
     part_acc = torch.empty((b, hq, n_split, d), dtype=torch.float32, device=q.device)
@@ -106,7 +98,7 @@ def decode_attention_bmhd(q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch
         err = lib.repro_decode_attention_fwd(
             q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(), lengths.data_ptr(),
             part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(), out.data_ptr(),
-            b, m, hq, hkv, d, split_len, n_split,
+            b, m, hq, hkv, d, n_split,
             q.stride(0), q.stride(2), cache_k.stride(0), cache_k.stride(1), cache_k.stride(2),
             cache_v.stride(0), cache_v.stride(1), cache_v.stride(2), out.stride(0),
             out.stride(2), DTYPES[q.dtype], stream)

@@ -16,10 +16,7 @@ from repro_torch.kernels import _build, ops
 from repro_torch.kernels import decode_attention as kdec
 from repro_torch.kernels import ref as R
 
-# The test workers share the machine's cores: one intra-op thread per worker
-# keeps torch from oversubscribing them, beside the wall-clock tests of the
-# other files.
-torch.set_num_threads(1)
+import _torch_threads  # noqa: F401  (one intra-op thread per test worker)
 
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 
@@ -287,41 +284,25 @@ def test_ssm_scans_take_strided_c_and_b():
     assert torch.equal(y0, y1)
 
 
-def _split_range(length: int, m: int, n_split: int, sp: int):
-    """The slots [start, end) that block ``sp`` of a row reads on K2's bf16
-    path: the arithmetic of ``decode_bf16_kernel`` in csrc/decode_attention.cu."""
-    n = max(0, min(length, m))
-    chunk = -(-n // n_split)
-    start = min(sp * chunk, n)
-    return start, min(start + chunk, n)
-
-
 @pytest.mark.parametrize("b,hkv,m", [(8, 1, 1024), (8, 5, 1024), (3, 2, 300), (1, 1, 7),
-                                     (64, 8, 32768), (2, 1, 512)])
+                                     (64, 8, 32768), (2, 1, 512), (1, 1, 1), (4, 4, 64),
+                                     (16, 1, 2048), (1, 8, 4096), (200, 1, 96)])
 def test_decode_split_plan_covers_the_cache(b, hkv, m):
-    """The bf16 plan: n_split from (B, Hkv, SM count) alone, each block's
-    range sized on the device from lengths[b].  Every slot below the length
-    falls in exactly one split, no block reads at or past it, whatever the
-    length: 0, 1, below n_split, M, and past M (clamped)."""
+    """The plan of both dtypes: n_split from (B, Hkv, SM count) alone, each
+    block's range sized on the device from lengths[b] (``split_range``, the
+    arithmetic both kernels of csrc/decode_attention.cu compute).  Every slot
+    below the length falls in exactly one split, no block reads at or past
+    it, whatever the length: 0, 1, below n_split, M, and past M (clamped)."""
     n_split = kdec.n_splits(b, hkv, n_sm=132)
     assert 1 <= n_split <= kdec.MAX_SPLIT
     for length in sorted({0, 1, 2, n_split - 1, n_split, n_split + 1, m // 2 + 3, m - 1, m,
                           m + 5}):
         covered = []
         for sp in range(n_split):
-            start, end = _split_range(length, m, n_split, sp)
+            start, end = kdec.split_range(length, m, n_split, sp)
             assert 0 <= start <= end <= min(length, m)
             covered.extend(range(start, end))
         assert covered == list(range(min(max(length, 0), m)))
-
-
-@pytest.mark.parametrize("b,hkv,m", [(8, 1, 1024), (3, 2, 300), (1, 1, 7), (64, 8, 32768)])
-def test_decode_f32_split_plan_covers_the_cache(b, hkv, m):
-    """The f32 path keeps its fixed splits over M (and with them its sums)."""
-    split_len, n_split = kdec.split_plan(b, hkv, m, n_sm=132)
-    assert split_len % kdec.SLOT_TILE == 0
-    assert split_len * n_split >= m > split_len * (n_split - 1)
-    assert n_split < 65536  # a grid's z dimension
 
 
 def test_build_needs_nvcc_and_import_builds_nothing(monkeypatch, tmp_path):

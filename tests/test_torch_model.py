@@ -25,10 +25,7 @@ from repro_torch.models import layers as TL
 from repro_torch.models import params as TP
 from repro_torch.models import transformer as TTF
 
-# The test workers share the machine's cores: one intra-op thread per worker
-# keeps torch from oversubscribing them, beside the wall-clock tests of the
-# other files.
-torch.set_num_threads(1)
+import _torch_threads  # noqa: F401  (one intra-op thread per test worker)
 
 TOL = dict(rtol=2e-4, atol=2e-4)  # in-model f32 parity
 IMPLS = [("xla", "xla"), ("pallas_interpret", "pallas")]  # (JAX, port)

@@ -21,10 +21,7 @@ from repro_torch.models.params import params_from_numpy
 from repro_torch.serving import ServingEngine
 from repro_torch.steps import init_model
 
-# The test workers share the machine's cores: one intra-op thread per worker
-# keeps torch from oversubscribing them, beside the wall-clock tests of the
-# other files.
-torch.set_num_threads(1)
+import _torch_threads  # noqa: F401  (one intra-op thread per test worker)
 
 ROOT = Path(__file__).resolve().parents[1]
 

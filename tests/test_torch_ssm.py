@@ -35,10 +35,7 @@ from repro_torch.models import ssm as TSSM
 from repro_torch.serving import ServingEngine
 from repro_torch.steps import init_model
 
-# The test workers share the machine's cores: one intra-op thread per worker
-# keeps torch from oversubscribing them, beside the wall-clock tests of the
-# other files.
-torch.set_num_threads(1)
+import _torch_threads  # noqa: F401  (one intra-op thread per test worker)
 
 KTOL = dict(rtol=2e-5, atol=2e-5)  # kernels, f32
 TOL = dict(rtol=2e-4, atol=2e-4)   # in-model f32 parity
