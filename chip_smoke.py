@@ -11,15 +11,22 @@ Phases, in order; any failure exits non-zero with its traceback:
                nvcc for sm_90a (one process per source, in parallel); check
                in the SASS (cuobjdump) that K1's bf16 kernels issue wgmma
                and TMA loads and K2's cp.async, mma.sync and ldmatrix.
+               Then ("fresh" lines), before any other phase loads the
+               card, each kernel's device time at its main row of phase 6,
+               and K3's again after 3 s of f32 matmuls.
 3. kernels   - each CUDA kernel against its plain PyTorch version on the card:
-               attention in f32 (tol 2e-5) and bf16 (tol 2e-2) at gemma's and
-               hymba's head shapes, ragged shapes, S = 1 and 65, every head
+               attention in f32 (tol 2e-5) and bf16 (tol 2e-2) at gemma's,
+               hymba's, phi3-mini's (D=96) and nemotron-4's (D=192, G=12)
+               head shapes, ragged shapes, S = 1 and 65, every head
                dim and GQA; decode also with NaN past lengths, a row of
                length 0 (output 0), G = 16 and lengths below the number of
                splits; the scans (K3, K4) in f32 (tol 2e-5) at hymba's
-               serve prefill shape, a ragged S and B=3, and with identity
-               steps at the end, which must leave h_last as it was.
-4. parity    - gemma-2b, then hymba-1.5b (both prefill scans), at full width
+               serve prefill shape, a ragged S and B=3, S over 1024, B and C
+               staged in 4-byte copies (N = 2, and views one float into a
+               projection), and with identity steps at the end, which must
+               leave h_last as it was.
+4. parity    - gemma-2b, hymba-1.5b (both prefill scans), then phi3-mini-3.8b
+               with its depth cut to 4 layers, at full width
                in f32: prefill + 4 decode steps through the kernels
                (attention_impl="pallas") and through plain PyTorch ("xla",
                the scans through their plain versions): every layer and the
@@ -29,18 +36,24 @@ Phases, in order; any failure exits non-zero with its traceback:
                route's input at f32 rounding.  The launch counters must rise
                by n_layers per prefill and per decode step, for each kernel on
                the route, and stay at 0 on the plain route.
-5. serve     - ``repro_torch.launch.serve.main`` at full width in bf16 (16
-               requests, 8 slots, 512-token prompts, 32 new tokens each):
-               gemma-2b (K1, K2), hymba-1.5b with the default scan (K1, K4,
-               K2) and with ``--scan-impl chunked`` (K1, K3, K2); every
+5. serve     - ``repro_torch.launch.serve.main`` at full width in bf16 (8
+               slots, 512-token prompts, 32 new tokens each): gemma-2b (K1,
+               K2), hymba-1.5b with the default scan (K1, K4, K2) and with
+               ``--scan-impl chunked`` (K1, K3, K2), 16 requests each, and
+               phi3-mini-3.8b (K1, K2 at D = 96), 8 requests; every
                request must complete and every prefill/decode must have gone
                through the kernels (counters set to 0 before each run).
-6. timing    - each kernel at its serve shapes: its device time (profiler)
-               and time per call (CUDA events, host launch cost included),
+6. timing    - each kernel at its serve shapes: its device time (profiler;
+               each op at its mean over the records a session kept), the same
+               from CUDA events around calls queued behind a sleep (a
+               cross-check), and time per call (CUDA events, host launch
+               cost included),
                the same for its plain version and, for attention, for
                scaled_dot_product_attention (a yardstick the port never
-               calls), and the roofline bound; each kernel's time over the
-               library's and its bound over its time.
+               calls), and the roofline bound (bytes, FLOPs and, for K3, its
+               exps on the SFU at the card's max SM clock); each kernel's
+               time over the library's and its bound over its time; K1 and
+               K2 also at phi3-mini's and nemotron-4's heads.
 7. breakdown - profiles of the prefill (1 x 512 tokens) and the decode tick
                of gemma-2b and of hymba-1.5b in the bf16 serve engine: the
                top six device ops and the port's kernels wherever they rank.
@@ -65,6 +78,7 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 F32_FLOPS = 67e12  # outside the tensor cores
+SFU_EXP_PER_CLOCK = 16  # MUFU.EX2 results per clock per SM (sm_90)
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # tests/test_kernels.py::_tol
 PARITY_REL_TOL = 1e-5  # full-width f32: max error / max |reference|
 # layers of the cut model whose entry points are held to PARITY_REL_TOL: at 2,
@@ -73,14 +87,21 @@ PARITY_DEPTH = 1
 CHAOS_FACTOR = 10  # most kernel-route drift per unit of the control's drift
 
 SERVE_COMMON = ["--full-width", "--attention-impl", "pallas", "--device", "cuda",
-                "--requests", "16", "--max-batch", "8", "--prefill-len", "512",
-                "--max-len", "1024", "--max-new", "32", "--json"]
-# (label, launcher arguments); each is one main path
+                "--max-batch", "8", "--prefill-len", "512", "--max-len", "1024",
+                "--max-new", "32", "--json"]
+# (label, launcher arguments); each is one main path.  phi3-mini serves one
+# wave of 8 requests: its K1 and K2 run at D = 96
 SERVE_RUNS = [
-    ("gemma-2b", ["--arch", "gemma-2b"] + SERVE_COMMON),
-    ("hymba-1.5b assoc", ["--arch", "hymba-1.5b"] + SERVE_COMMON),
-    ("hymba-1.5b chunked", ["--arch", "hymba-1.5b", "--scan-impl", "chunked"] + SERVE_COMMON),
+    ("gemma-2b", ["--arch", "gemma-2b", "--requests", "16"] + SERVE_COMMON),
+    ("hymba-1.5b assoc", ["--arch", "hymba-1.5b", "--requests", "16"] + SERVE_COMMON),
+    ("hymba-1.5b chunked", ["--arch", "hymba-1.5b", "--scan-impl", "chunked", "--requests", "16"]
+     + SERVE_COMMON),
+    ("phi3-mini-3.8b", ["--arch", "phi3-mini-3.8b", "--requests", "8"] + SERVE_COMMON),
 ]
+# (arch, depth) of the full-width f32 parity runs; None keeps the published
+# depth.  phi3-mini's 32 layers are cut to 4: its K1 and K2 at D = 96 are
+# the point, and each layer adds seconds of plain f32 attention
+PARITY_RUNS = [("gemma-2b", None), ("hymba-1.5b", None), ("phi3-mini-3.8b", 4)]
 # the serve run whose counts stand in the kernels JSON as each kernel's launches
 MAIN_PATH = {"flash_attention": "gemma-2b", "decode_attention": "gemma-2b",
              "ssm_scan": "hymba-1.5b assoc", "ssm_scan_fused": "hymba-1.5b chunked"}
@@ -142,11 +163,42 @@ def call_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
+def queued_ms(fn, iters: int = 20) -> float:
+    """Mean time per call of fn() from CUDA events around ``iters`` calls
+    queued behind a sleep on the device that outlasts the host's queueing of
+    them: the device ops run back to back, so the gaps between them count
+    and the host's launch cost does not."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2 * host_s * 2e9) + 1_000_000)  # cycles: twice host_s at 2 GHz, + 0.5 ms
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+# profiling sessions of device_ms, and those that lost device records
+PROFILER = {"sessions": 0, "short": 0, "lost": 0}
+
+
 def device_ms(fn, iters: int = 20, warmup: int = 5) -> float:
-    """Mean device time per call of fn(): the profiler's sum of the device
-    time of every kernel and copy the calls launched, over ``iters``.  Now
-    and then a profiling session records no device activity at all; such a
-    session is repeated, up to three sessions in all."""
+    """Mean device time per call of fn(), from the profiler: for each device
+    op, its mean duration over the records the session kept, times the
+    number of times one call runs it, its count over ``iters`` rounded.  A
+    session can lose a few device records (late in this script on the H100,
+    2 to 7 of a session's; see PROFILER), so a plain sum over ``iters``
+    would read short.  A session that saw no device time at all is
+    repeated, up to three in all; after three the time comes from CUDA
+    events (``queued_ms``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -159,12 +211,21 @@ def device_ms(fn, iters: int = 20, warmup: int = 5) -> float:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        busy_us = sum(e.self_device_time_total for e in prof.key_averages()
-                      if e.device_type.name == "CUDA")
-        if busy_us > 0:
-            return busy_us / iters / 1e3
+        device = [e for e in prof.key_averages()
+                  if e.device_type.name == "CUDA" and e.count > 0]
+        PROFILER["sessions"] += 1
+        if sum(e.self_device_time_total for e in device) > 0:
+            per_call = {e.key: max(round(e.count / iters), 1) for e in device}
+            lost = sum(iters * per_call[e.key] - e.count for e in device)
+            if lost > 0:
+                PROFILER["short"] += 1
+                PROFILER["lost"] += lost
+            return sum(e.self_device_time_total / e.count * per_call[e.key]
+                       for e in device) / 1e3
         log("timing", f"profiling session {attempt} of {attempts} saw no device time")
-    raise RuntimeError(f"the profiler saw no device time in {attempts} sessions")
+    ms = queued_ms(fn, iters)
+    log("timing", f"timed from CUDA events behind a queued sleep instead: {ms * 1e3:.2f} us a call")
+    return ms
 
 
 def with_scan(cfg, scan_impl: str):
@@ -345,13 +406,31 @@ def fused_plain(delta, B, C, x, A):
     return ref.ssm_scan_ref(*ref.ssm_discretize(delta, B, x, A), C)
 
 
-def _check_scans(worst: dict, shape) -> None:
-    """K4 and K3 against their plain version at ``shape`` = (B,S,di,N)."""
+def _k3_staging(B, C) -> str:
+    """How K3 stages B and C rows in shared memory: 16-byte copies when N,
+    the seq strides and every batch's bases are 16-byte multiples, else
+    4-byte ones (the condition of ``vec16`` in csrc/ssm_scan.cu)."""
+    n = B.shape[2]
+    bases = [t.data_ptr() + 4 * i * t.stride(0) for t in (B, C) for i in range(t.shape[0])]
+    wide = n % 4 == 0 and B.stride(1) % 4 == 0 and C.stride(1) % 4 == 0
+    return "16-byte" if wide and all(p % 16 == 0 for p in bases) else "4-byte"
+
+
+def _check_scans(worst: dict, shape, offset: int = 0) -> str:
+    """K4 and K3 against their plain version at ``shape`` = (B,S,di,N).  With
+    ``offset`` > 0, B and C are views into one projection of offset + 2N
+    floats a step, starting ``offset`` floats in, as the model's B and C
+    are views of its x projection.  Returns how K3 staged B and C."""
     import torch
 
     from repro_torch.kernels import ops, ref
 
     delta, B, C, x, A = _scan_inputs(*shape, seed=sum(shape))
+    if offset:
+        b, s, _, n = shape
+        proj = torch.zeros(b, s, offset + 2 * n, device="cuda")
+        proj[..., offset:offset + n], proj[..., offset + n:] = B, C
+        B, C = proj[..., offset:offset + n], proj[..., offset + n:]
     dA, dBx = ref.ssm_discretize(delta, B, x, A)
     y_want, h_want = ref.ssm_scan_ref(dA, dBx, C)
     for name, out in (("ssm_scan", ops.ssm_scan(dA, dBx, C)),
@@ -360,8 +439,13 @@ def _check_scans(worst: dict, shape) -> None:
         err = max(check_close(f"{name} {shape} y", out[0], y_want, "float32"),
                   check_close(f"{name} {shape} h_last", out[1], h_want, "float32"))
         worst[name] = max(worst[name], err)
-        log("kernels", f"{name} f32 B,S,di,N={shape}: max_abs_err {err:.3e} over y and h_last "
-            f"(max |y| {float(y_want.abs().max()):.1f}; atol = rtol = 2e-05) ok")
+        log("kernels", f"{name} f32 B,S,di,N={shape}"
+            + (f", B and C views at float {offset} of a projection row" if offset else "")
+            + f": max_abs_err {err:.3e} over y and h_last (max |y| "
+            f"{float(y_want.abs().max()):.1f}; atol = rtol = 2e-05) ok"
+            + (f"; K3 staged B and C in {_k3_staging(B, C)} copies" if name == "ssm_scan_fused"
+               else ""))
+    return _k3_staging(B, C)
 
 
 def _check_identity_steps(shape, keep: int) -> None:
@@ -403,10 +487,14 @@ def phase_kernels() -> dict:
         # gemma's heads (MQA, D=256), ragged S, GQA; hymba's heads (25/5, D=64);
         # one row, a tile and one row, and the head dims no model uses at full
         # width (bf16 runs those through the mma.sync path, 64-256 through wgmma)
+        # phi3-mini's (32/32, D=96: half of the second 64-column chunk is
+        # TMA's zero fill) and nemotron-4's (96/8, G=12, D=192: three chunks)
         for shape in [(1, 512, 8, 1, 256), (1, 77, 8, 1, 256), (2, 300, 8, 2, 128),
                       (1, 512, 25, 5, 64), (2, 77, 25, 5, 64), (1, 1, 8, 1, 256),
                       (2, 65, 8, 1, 256), (1, 65, 25, 5, 64), (2, 130, 4, 2, 16),
-                      (1, 100, 4, 1, 32), (1, 200, 16, 4, 128)]:
+                      (1, 100, 4, 1, 32), (1, 200, 16, 4, 128),
+                      (1, 512, 32, 32, 96), (2, 77, 32, 32, 96), (1, 512, 96, 8, 192),
+                      (2, 77, 96, 8, 192)]:
             q, k, v = _flash_inputs(*shape, dtype, seed=sum(shape))
             got = ops.flash_attention(q, k, v)
             torch.cuda.synchronize()
@@ -423,7 +511,11 @@ def phase_kernels() -> dict:
                                ((4, 256, 8, 1, 256), [0, 5, 256, 100]),
                                ((2, 512, 16, 1, 128), [512, 301]),
                                ((8, 1024, 8, 1, 256), [0, 1, 2, 3, 5, 7, 16, 31]),
-                               ((3, 64, 32, 2, 64), [0, 64, 9])]:
+                               ((3, 64, 32, 2, 64), [0, 64, 9]),
+                               ((8, 1024, 32, 32, 96), [1, 33, 100, 512, 513, 530, 777, 1024]),
+                               ((3, 300, 32, 32, 96), [0, 300, 17]),
+                               ((8, 1024, 96, 8, 192), [1, 33, 100, 512, 513, 530, 777, 1024]),
+                               ((4, 512, 96, 8, 192), [0, 5, 512, 300])]:
             q, ck, cv, lens = _decode_inputs(*shape, dtype, sum(shape), lengths)
             live = lens > 0
             want = decode_plain(q[live], ck[live], cv[live], lens[live])
@@ -446,9 +538,15 @@ def phase_kernels() -> dict:
             log("kernels", f"decode_attention {name} B,M,Hq,Hkv,D={shape} lengths={lengths}: "
                 f"max_abs_err {err:.3e} (atol = rtol = {TOL[name]}); NaN past lengths "
                 "ignored; ok")
-    # the scans take f32 only: hymba's serve prefill, a ragged S with B=3
-    for shape in [(1, 512, 3200, 16), (3, 77, 3200, 16)]:
+    # the scans take f32 only: hymba's serve prefill, a ragged S with B=3,
+    # and S past one 512-step window of K3 (its carry between windows)
+    for shape in [(1, 512, 3200, 16), (3, 77, 3200, 16), (2, 1100, 96, 16)]:
         _check_scans(worst, shape)
+    # K3's 4-byte staging of B and C: N = 2 (not a multiple of 4), and N = 16
+    # as views one float into a projection (misaligned bases), over two windows
+    for shape, offset in [((2, 77, 96, 2), 0), ((2, 600, 96, 16), 1)]:
+        if _check_scans(worst, shape, offset) != "4-byte":
+            raise AssertionError(f"ssm_scan_fused {shape}: B and C did not take the 4-byte path")
     _check_identity_steps((1, 512, 3200, 16), keep=437)
     return worst
 
@@ -494,11 +592,12 @@ def _entry_points(params: dict, cfg, prompt, steps, max_len: int) -> list:
     return got
 
 
-def phase_parity(arch: str) -> None:
+def phase_parity(arch: str, depth=None) -> None:
     """Full-width ``arch`` in f32: kernel route(s) ("pallas") vs plain route
     ("xla", and for hymba the scans through their plain versions).  Hymba has
     two kernel routes, one per prefill scan (K4 for "assoc", K3 for
-    "chunked").
+    "chunked").  ``depth`` cuts the model to that many layers ("full depth"
+    below is then the cut depth).
 
     Under the reference's init (fan-in of wq/wk taken from the head dims, so
     q and k entries have a std far above 1) the random full-width model's
@@ -532,6 +631,10 @@ def phase_parity(arch: str) -> None:
     from repro_torch.steps import init_model
 
     cfg = get_config(arch, dtype="float32")
+    cut = ""
+    if depth is not None:
+        cut = f" (depth cut from {cfg.n_layers} to {depth} layers)"
+        cfg = dataclasses.replace(cfg, n_layers=depth)
     cp = dataclasses.replace(cfg, attention_impl="pallas")
     cx = dataclasses.replace(cfg, attention_impl="xla")
     if cfg.family == "hybrid":
@@ -542,7 +645,7 @@ def phase_parity(arch: str) -> None:
     t0 = time.perf_counter()
     defs, params = init_model(cfg, seed=0, max_seq=max_len, device="cuda")
     torch.cuda.synchronize()
-    log("parity", f"{arch} f32, {count_params(defs) / 1e9:.3f}B params, {cfg.n_layers} layers, "
+    log("parity", f"{arch} f32, {count_params(defs) / 1e9:.3f}B params, {cfg.n_layers} layers{cut}, "
         f"init {time.perf_counter() - t0:.1f}s; prompt B={b} S={s}, {n_dec} decode steps; "
         f"kernel routes {list(kernel)}")
     g = torch.Generator(device="cuda").manual_seed(1)
@@ -601,16 +704,27 @@ def phase_parity(arch: str) -> None:
             x = L.embed_tokens(params["embed"], steps[i], cfg)
             pos = cache["pos"]
             worst = dict.fromkeys(kernel, 0.0)
+            # the first step also splits each layer: its attention sublayer
+            # alone (K2 and the output projection) on the same input
+            split = {name: (0.0, 0) for name in kernel}
             for li in range(n):
                 p = TF.layer_params(params["blocks"], li)
                 layer = {key: t[li] for key, t in cache.items() if key != "pos"}
                 # each writes the same new K/V (computed before attention)
                 # into the slot; the recurrent state is only read
                 xk = {name: DEC._decode_block(p, x, layer, pos, c)[0] for name, c in kernel.items()}
+                if i == 0:
+                    xn = L.apply_norm(p["ln_attn"], x, cfg.norm)
+                    attn = L.attn_decode(p["attn"], xn, layer["k"], layer["v"], pos, cx)[0]
+                    attn_err = {name: max_err(L.attn_decode(p["attn"], xn, layer["k"], layer["v"],
+                                                            pos, c)[0], attn)
+                                for name, c in kernel.items()}
                 x, state = DEC._decode_block(p, x, layer, pos, cx)
                 for name in kernel:
                     worst[name] = max(worst[name], _check_rel(f"{name} decode {i + 1} layer {li}",
                                                               xk[name], x))
+                    if i == 0:
+                        split[name] = max(split[name], (attn_err[name] / float(x.abs().max()), li))
                 for key, t in state.items():
                     cache[key][li] = t
             rels = {name: _check_rel(f"{name} decode {i + 1} logits", logits_of(xk[name]),
@@ -618,6 +732,12 @@ def phase_parity(arch: str) -> None:
             log("parity", f"a. decode {i + 1}, same input: " + "; ".join(
                 f"{name} worst layer err / max |x| {worst[name]:.3e}, logits {rels[name]:.3e}"
                 for name in kernel) + f" (tol {PARITY_REL_TOL}) ok")
+            if i == 0:
+                log("parity", "a. decode 1, attention sublayer alone (K2 and the output "
+                    "projection, same input): " + "; ".join(
+                        f"{name} worst err / max |layer output| {split[name][0]:.3e} (layer "
+                        f"{split[name][1]})" for name in kernel)
+                    + "; the rest of the layer runs the same code on both routes")
             cache["pos"] += 1
         del cache
 
@@ -711,7 +831,69 @@ def phase_serve(label: str, args: list) -> dict:
     return {"summary": summary, "launches": launches, "requests": n_req}
 
 
-def phase_timing(worst: dict, serves: dict) -> list:
+def sfu_exp_rate() -> float:
+    """exps per second the card's SFUs give at its max SM clock
+    (``nvidia-smi --query-gpu=clocks.max.sm``), all SMs busy."""
+    import torch
+
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    mhz = float(out.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rate = sms * SFU_EXP_PER_CLOCK * mhz * 1e6
+    log("timing", f"max SM clock {mhz:.0f} MHz (nvidia-smi clocks.max.sm), {sms} SMs: "
+        f"{rate / 1e12:.3f} T exp/s on the SFUs ({SFU_EXP_PER_CLOCK} a clock an SM)")
+    return rate
+
+
+def smi_state() -> str:
+    """The card's SM and memory clocks, power draw and performance state now."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,power.draw,pstate",
+                          "--format=csv,noheader"], capture_output=True, text=True, timeout=60,
+                         check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def phase_fresh() -> dict:
+    """Device time of each kernel at its main path's serve shape (the main
+    rows of phase 6) in this fresh process, before any other phase loads the
+    card, and before the profiler starts to lose device records (see
+    device_ms); then K3's again after 3 s of f32 matmuls.  Phase 6 times
+    the same calls after minutes of parity and serving."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    q, k, v = _flash_inputs(1, 512, 8, 1, 256, torch.bfloat16, seed=7)
+    qd, ckd, cvd, lens = _decode_inputs(8, 1024, 8, 1, 256, torch.bfloat16, 8, [528] * 8)
+    delta, B, C, x, A = _scan_inputs(1, 512, 3200, 16, seed=9)
+    dA, dBx = ref.ssm_discretize(delta, B, x, A)
+    fns = {"flash_attention": lambda: ops.flash_attention(q, k, v),
+           "decode_attention": lambda: ops.decode_attention(qd, ckd, cvd, lens),
+           "ssm_scan": lambda: ops.ssm_scan(dA, dBx, C),
+           "ssm_scan_fused": lambda: ops.ssm_scan_fused(delta, B, C, x, A)}
+    before = smi_state()
+    fresh = {name: device_ms(fn) for name, fn in fns.items()}
+    log("fresh", f"device time in a fresh process (nvidia-smi clocks.sm, clocks.mem, power.draw, "
+        f"pstate: {before}): " + "; ".join(f"{name} {ms * 1e3:.2f} us"
+                                           for name, ms in fresh.items())
+        + f"; ssm_scan_fused from CUDA events behind a queued sleep "
+        f"{queued_ms(fns['ssm_scan_fused']) * 1e3:.2f} us")
+    m = torch.randn(8192, 8192, device="cuda")
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < 3:
+        torch.mm(m, m)
+        torch.cuda.synchronize()
+    loaded = smi_state()
+    after = device_ms(fns["ssm_scan_fused"])
+    log("fresh", f"ssm_scan_fused after 3 s of f32 matmuls ({loaded}): {after * 1e3:.2f} us, "
+        f"from CUDA events behind a queued sleep {queued_ms(fns['ssm_scan_fused']) * 1e3:.2f} us")
+    del m
+    torch.cuda.empty_cache()
+    return {"fresh_ms": fresh, "ssm_scan_fused_after_load_ms": after}
+
+
+def phase_timing(worst: dict, serves: dict, fresh: dict) -> list:
     import torch
     import torch.nn.functional as F
 
@@ -719,7 +901,10 @@ def phase_timing(worst: dict, serves: dict) -> list:
 
     def measure(fns):  # timed at once: the callables close over this block's tensors
         return {"dev": {key: device_ms(fn) for key, fn in fns.items()},
-                "call": {key: call_ms(fn) for key, fn in fns.items()}}
+                "call": {key: call_ms(fn) for key, fn in fns.items()},
+                "events_ms": queued_ms(fns["ms"])}
+
+    log("timing", f"nvidia-smi clocks.sm, clocks.mem, power.draw, pstate: {smi_state()}")
 
     bf16 = torch.bfloat16
     item = 2  # bytes per bf16 element
@@ -764,6 +949,12 @@ def phase_timing(worst: dict, serves: dict) -> list:
     rows.append(decode_row(8, 1024, 528, 8, 1, 256, "gemma-2b"))
     rows.append(flash_row(1, 512, 25, 5, 64, "hymba-1.5b"))
     rows.append(decode_row(8, 1024, 528, 25, 5, 64, "hymba-1.5b"))
+    # the same at the head dims no earlier path ran: phi3-mini's (32/32,
+    # D=96) and nemotron-4's (96/8, D=192), at the same serve shapes
+    rows.append(flash_row(1, 512, 32, 32, 96, "phi3-mini-3.8b"))
+    rows.append(decode_row(8, 1024, 528, 32, 32, 96, "phi3-mini-3.8b"))
+    rows.append(flash_row(1, 512, 96, 8, 192, "nemotron-4-340b"))
+    rows.append(decode_row(8, 1024, 528, 96, 8, 192, "nemotron-4-340b"))
 
     # the fixed cost of a call, beside the serve shapes: K1 with one 64-row
     # tile per head, K2 with one valid slot a row, and a one-element fill
@@ -793,19 +984,27 @@ def phase_timing(worst: dict, serves: dict) -> list:
         nbytes=f32 * (2 * b * s * di * n + b * s * n + b * s * di + b * di * n),
         flops=4 * b * s * di * n, peak=F32_FLOPS, shape=shape))
     # K3 bytes: delta, x, B, C, A read once, y and h_last written once;
-    # FLOPs: K4's 4 plus delta * A, exp, and delta * B * x (2) per element
+    # FLOPs: K4's 4 plus delta * A and delta * B * x (2) per element; and
+    # one exp per element, on the SFU (its own operation type)
     rows.append(dict(
         name="ssm_scan_fused", where="hymba-1.5b",
         **measure({"ms": lambda: ops.ssm_scan_fused(delta, B, C, x, A),
                    "plain_ms": lambda: fused_plain(delta, B, C, x, A)}),
         nbytes=f32 * (2 * b * s * di + 2 * b * s * n + di * n + b * s * di + b * di * n),
-        flops=8 * b * s * di * n, peak=F32_FLOPS, shape=shape))
+        flops=7 * b * s * di * n, peak=F32_FLOPS, exps=b * s * di * n, shape=shape))
 
+    log("timing", f"profiler: {PROFILER['short']} of {PROFILER['sessions']} sessions so far lost "
+        f"device records, {PROFILER['lost']} in all; each op is timed by its mean over the "
+        "records kept")
+    exp_rate = sfu_exp_rate()
     out = {}
     for r in rows:
         dev, call = r["dev"], r["call"]
         t_bytes = r["nbytes"] / HBM_BYTES_PER_S * 1e3
-        t_ops = r["flops"] / r["peak"] * 1e3
+        # operations: FLOPs at their type's peak, or the exps on the SFU, the longer
+        t_flops = r["flops"] / r["peak"] * 1e3
+        t_exps = r.get("exps", 0) / exp_rate * 1e3
+        t_ops = max(t_flops, t_exps)
         bound_ms, bound_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
         lib = dev.get("library_ms")
         grids = ops.GRIDS_PER_CALL[r["name"]]
@@ -817,15 +1016,18 @@ def phase_timing(worst: dict, serves: dict) -> list:
             + f"; per call, host included: kernel {call['ms'] * 1e3:.2f} us, plain "
             f"{call['plain_ms'] * 1e3:.2f} us"
             + (f", library {call['library_ms'] * 1e3:.2f} us" if lib is not None else "")
-            + f"; bound {bound_ms * 1e3:.3f} us ({bound_by}: {r['nbytes']} B, "
-            f"{r['flops']:.4g} FLOP); kernel / library "
+            + f"; bound {bound_ms * 1e3:.3f} us ({bound_by}: {r['nbytes']} B = "
+            f"{t_bytes * 1e3:.3f} us, {r['flops']:.4g} FLOP = {t_flops * 1e3:.3f} us"
+            + (f", {r['exps']:.4g} exp = {t_exps * 1e3:.3f} us" if r.get("exps") else "")
+            + "); kernel / library "
             + (f"{of_lib:.3f}" if of_lib is not None else "none")
-            + f", bound / kernel {bound_ms / dev['ms']:.4f}; wrapper calls on the serve paths "
+            + f", bound / kernel {bound_ms / dev['ms']:.4f}; kernel from CUDA events behind a "
+            f"queued sleep {r['events_ms'] * 1e3:.2f} us; wrapper calls on the serve paths "
             f"{by_path}, {grids} grid(s) each")
         entry = {"ms": dev["ms"], "plain_ms": dev["plain_ms"], "bound_ms": bound_ms,
                  "bound_by": bound_by, "library_ms": lib, "ms_over_library": of_lib,
                  "bound_over_ms": bound_ms / dev["ms"], "call_ms": call["ms"],
-                 "shape": r["shape"]}
+                 "events_ms": r["events_ms"], "shape": r["shape"]}
         if r["name"] in out:  # a second shape of the same kernel
             out[r["name"]]["at_" + r["where"]] = entry
             continue
@@ -838,26 +1040,37 @@ def phase_timing(worst: dict, serves: dict) -> list:
                           "launches": serves[main]["launches"][r["name"]],
                           "main_path": main, "launches_by_path": by_path,
                           "grids_per_call": grids,
-                          "max_abs_err": worst[r["name"]], **entry}
+                          "max_abs_err": worst[r["name"]], **entry,
+                          "fresh_ms": fresh["fresh_ms"][r["name"]]}
+        if r["name"] == "ssm_scan_fused":
+            out[r["name"]]["after_load_ms"] = fresh["ssm_scan_fused_after_load_ms"]
     return list(out.values())
 
 
 def _profile(what: str, fn) -> None:
-    """Wall time, device busy time and the top device ops of one fn()."""
+    """Wall time, device busy time and the top device ops of one fn().  A
+    profiling session that saw no device time is repeated (fn runs again),
+    up to three sessions in all."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
+    attempts = 3
+    for attempt in range(1, attempts + 1):
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
-    busy_us = sum(e.self_device_time_total for e in events)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+        busy_us = sum(e.self_device_time_total for e in events)
+        if busy_us > 0:
+            break
+        log("breakdown", f"{what}: profiling session {attempt} of {attempts} saw no device time")
+    else:
+        raise RuntimeError(f"{what} {wall * 1e3:.2f} ms wall: the profiler saw no device time "
+                           f"in {attempts} sessions")
     n_kernels = sum(e.count for e in events)
-    if busy_us <= 0:
-        raise RuntimeError(f"{what} {wall * 1e3:.2f} ms wall: the profiler saw no device time")
     log("breakdown", f"{what} {wall * 1e3:.2f} ms wall, device busy {busy_us / 1e3:.2f} ms "
         f"(idle share {1 - busy_us / 1e3 / (wall * 1e3):.3f}), {n_kernels} device ops")
     ranked = sorted(events, key=lambda e: -e.self_device_time_total)
@@ -903,11 +1116,12 @@ def main() -> int:
     import torch
 
     phase_build()
+    fresh = phase_fresh()
     worst = phase_kernels()
-    for arch in ("gemma-2b", "hymba-1.5b"):
-        phase_parity(arch)
+    for arch, depth in PARITY_RUNS:
+        phase_parity(arch, depth)
     serves = {label: phase_serve(label, args) for label, args in SERVE_RUNS}
-    kernels = phase_timing(worst, serves)
+    kernels = phase_timing(worst, serves, fresh)
     for arch in ("gemma-2b", "hymba-1.5b"):
         phase_breakdown(arch)
     log("done", f"all phases passed in {time.perf_counter() - t_start:.1f}s")

@@ -225,8 +225,10 @@ cudaError_t launch_decode(const void* q, const void* k, const void* v, const int
 // its slots as above.  They stream through shared memory in 32-slot
 // tiles of K and V: 16-byte cp.async per thread, zero-filled past
 // the block's last slot (nothing past it is read), rows padded by 16 bytes so
-// that the fragment loads below are free of bank conflicts.  The ring has
-// 3 stages at D = 256 and 4 below, so a block's tiles (2-3 at the serve
+// that the fragment loads below are free of bank conflicts (a row of 2D + 16
+// bytes starts 4 banks further on, 20 at D = 96: the 8 rows of a fragment
+// load land in 8 different 4-bank groups).  The ring has 3 stages at D = 256
+// and 4 below (111 KB at D = 192), so a block's tiles (2-3 at the serve
 // shapes) are all in flight at once.
 //  * Scores: the G query heads are padded to the 16 rows of an mma.sync
 //    m16n8k16; warp w computes the 8 slots 8w..8w+7 of the tile over all of
@@ -533,7 +535,9 @@ cudaError_t dispatch_decode(const void* q, const void* k, const void* v, const i
     case 16: return launch_decode<T, 16>(q, k, v, lengths, pm, pl, pa, o, B, M, Hq, Hkv, n_split, st, s);
     case 32: return launch_decode<T, 32>(q, k, v, lengths, pm, pl, pa, o, B, M, Hq, Hkv, n_split, st, s);
     case 64: return launch_decode<T, 64>(q, k, v, lengths, pm, pl, pa, o, B, M, Hq, Hkv, n_split, st, s);
+    case 96: return launch_decode<T, 96>(q, k, v, lengths, pm, pl, pa, o, B, M, Hq, Hkv, n_split, st, s);
     case 128: return launch_decode<T, 128>(q, k, v, lengths, pm, pl, pa, o, B, M, Hq, Hkv, n_split, st, s);
+    case 192: return launch_decode<T, 192>(q, k, v, lengths, pm, pl, pa, o, B, M, Hq, Hkv, n_split, st, s);
     case 256: return launch_decode<T, 256>(q, k, v, lengths, pm, pl, pa, o, B, M, Hq, Hkv, n_split, st, s);
     default: return cudaErrorInvalidValue;
   }
@@ -571,7 +575,9 @@ extern "C" int repro_decode_attention_fwd(
       case 16: return launch_decode_bf16<16>(q, k, v, len, pm, pl, pa, o, B, M, Hq, Hkv, n_split, st, s);
       case 32: return launch_decode_bf16<32>(q, k, v, len, pm, pl, pa, o, B, M, Hq, Hkv, n_split, st, s);
       case 64: return launch_decode_bf16<64>(q, k, v, len, pm, pl, pa, o, B, M, Hq, Hkv, n_split, st, s);
+      case 96: return launch_decode_bf16<96>(q, k, v, len, pm, pl, pa, o, B, M, Hq, Hkv, n_split, st, s);
       case 128: return launch_decode_bf16<128>(q, k, v, len, pm, pl, pa, o, B, M, Hq, Hkv, n_split, st, s);
+      case 192: return launch_decode_bf16<192>(q, k, v, len, pm, pl, pa, o, B, M, Hq, Hkv, n_split, st, s);
       case 256: return launch_decode_bf16<256>(q, k, v, len, pm, pl, pa, o, B, M, Hq, Hkv, n_split, st, s);
       default: return cudaErrorInvalidValue;
     }

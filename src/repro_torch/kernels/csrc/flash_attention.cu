@@ -14,9 +14,9 @@
 // small (64 blocks at gemma's shape) and the causal work uneven: the block
 // of the last tile walks S/64 key tiles, and its chain of tile loads and
 // products sets the kernel's time.  Three paths, picked by dtype and D:
-//  * bf16, D = 64, 128, 256 (serving): Hopper warp specialisation.  A
-//    producer warp keeps the next K/V tiles in flight by TMA into a ring of
-//    2-4 stages in shared memory (mbarrier completion) while one consumer
+//  * bf16, D = 64, 96, 128, 192, 256 (serving): Hopper warp specialisation.
+//    A producer warp keeps the next K/V tiles in flight by TMA into a ring
+//    of 2-4 stages in shared memory (mbarrier completion) while one consumer
 //    warpgroup runs wgmma on the current one: S = Q K^T with both operands
 //    K-major as they arrive, and O += P V with P from registers and V read
 //    MN-major straight from its TMA tile.  Q is loaded once per block.
@@ -41,10 +41,11 @@
 //    no padding copies either; K/V of a head group are read from the same
 //    memory (no repeated K/V).
 //  * f32 at D = 256: the q/k/v tiles (+1 column of padding against bank
-//    conflicts) and the P tile take 214,016 bytes of dynamic shared memory,
-//    enabled with cudaFuncSetAttribute.  The 64 x D f32 accumulator lives in
-//    registers: 256 threads x (4 rows x D/16 columns) = 64 floats a thread at
-//    D = 256, with no spill to local memory (ptxas -v).
+//    conflicts) and the P tile take 214,016 bytes of dynamic shared memory
+//    (164,864 at D = 192), enabled with cudaFuncSetAttribute.  The 64 x D
+//    f32 accumulator lives in registers: 256 threads x (4 rows x D/16
+//    columns) = 64 floats a thread at D = 256, with no spill to local
+//    memory (ptxas -v).
 #include <cstdint>
 
 #include "common.cuh"
@@ -394,11 +395,16 @@ cudaError_t launch_flash_mma(const void* q, const void* k, const void* v, void* 
 //
 // 160 threads: one consumer warpgroup (warps 0-3, the block's 64 query rows,
 // 16 a warp) and one producer warp (warp 4).  Every tile is a TMA box of 64
-// rows x 64 bf16 columns (128 bytes, 128-byte swizzle); a 64 x D tile is D/64
-// such chunks, 8 KB each, 1024-byte aligned.
+// rows x 64 bf16 columns (128 bytes, 128-byte swizzle); a 64 x D tile is
+// ceil(D/64) such chunks, 8 KB each, 1024-byte aligned.  At D = 96 the
+// second chunk holds 32 columns of data: the tensor map's inner dim is D,
+// so TMA fills columns 96..127 with zeros (and still counts the whole box's
+// bytes on the mbarrier).  S = Q K^T issues only the D/16 k-steps that hold
+// data; P V runs on the whole chunk, its last 32 output columns add up
+// zeros, and the epilogue writes only the D columns.
 //  * The producer's lane 0 loads the Q tile once, then walks the key tiles
 //    up to the diagonal, loading K and V into a ring of kWStages stages (4
-//    at D = 64, 3 at 128, 2 at 256: what shared memory holds): it
+//    at D = 64, 3 at 96-192, 2 at 256: what shared memory holds): it
 //    waits on a stage's `empty` mbarrier (128 consumer arrivals), arms its
 //    `full` mbarrier with the tile's bytes and issues the boxes.  Rows past
 //    S come back as zeros (TMA's out-of-bounds fill), and the scores of keys
@@ -407,7 +413,7 @@ cudaError_t launch_flash_mma(const void* q, const void* k, const void* v, void* 
 //    with both operands K-major in shared memory, as they arrive.  The online
 //    softmax runs on the accumulator registers (the same fragment layout as
 //    mma.sync: rows g and g + 8 of the warp's 16, columns 8j + 2t + {0, 1}),
-//    P is rounded to bf16 into the A registers of O += P V: D/64 x 4 wgmma
+//    P is rounded to bf16 into the A registers of O += P V: chunks x 4 wgmma
 //    m64n64k16 with V read MN-major straight from its TMA tile (no transpose
 //    pass).  Then the stage is released.  While they compute, the producer
 //    has the next tile in flight.
@@ -430,16 +436,24 @@ constexpr int kWConsumers = 128;          // one warpgroup
 constexpr int kWThreads = kWConsumers + 32;
 constexpr int kChunkBytes = 64 * 128;     // 64 rows x 64 bf16 columns
 
+// 64-column chunks of a 64 x D tile
+template <int D>
+__host__ __device__ constexpr int wgmma_chunks() {
+  return (D + 63) / 64;
+}
+
 // K/V ring depth: as deep as shared memory lets the producer run ahead
+// (Q + stages x (K + V): 72 KB at D = 64, 112 KB at 96 and 128, 168 KB at
+// 192, 160 KB at 256)
 template <int D>
 __host__ __device__ constexpr int wgmma_stages() {
-  return D == 64 ? 4 : D == 128 ? 3 : 2;
+  return D == 64 ? 4 : D == 256 ? 2 : 3;
 }
 
 template <int D>
 constexpr size_t wgmma_smem_bytes() {
   // alignment slack + Q + stages x (K + V) + the mbarriers
-  return 1024 + size_t(D / 64) * kChunkBytes * (1 + 2 * wgmma_stages<D>()) +
+  return 1024 + size_t(wgmma_chunks<D>()) * kChunkBytes * (1 + 2 * wgmma_stages<D>()) +
          sizeof(uint64_t) * (2 * wgmma_stages<D>() + 1);
 }
 
@@ -448,7 +462,7 @@ __global__ void __launch_bounds__(kWThreads, 1) flash_fwd_wgmma_kernel(
     __grid_constant__ const CUtensorMap tq, __grid_constant__ const CUtensorMap tk,
     __grid_constant__ const CUtensorMap tv, __nv_bfloat16* __restrict__ o, int S, int group,
     float scale, long long o_sb, long long o_ss, long long o_sh) {
-  constexpr int NC = D / 64;                // 64-column chunks
+  constexpr int NC = wgmma_chunks<D>();     // 64-column chunks
   constexpr int TILE = NC * kChunkBytes;    // bytes of one 64 x D tile
   constexpr int kWStages = wgmma_stages<D>();
   extern __shared__ unsigned char smem_raw[];
@@ -516,7 +530,7 @@ __global__ void __launch_bounds__(kWThreads, 1) flash_fwd_wgmma_kernel(
     float sc[32] = {};
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < D / 16; ++kk) {  // the k-steps that hold data
       // 16 columns = 32 bytes into the chunk's swizzled 128-byte rows
       const uint32_t off = (kk / 4) * kChunkBytes + (kk % 4) * 32;
       wgmma_m64n64k16_ss(sc, sw128_desc(q_addr + off), sw128_desc(k_addr + off), kk > 0);
@@ -623,6 +637,7 @@ __global__ void __launch_bounds__(kWThreads, 1) flash_fwd_wgmma_kernel(
 #pragma unroll
     for (int jn = 0; jn < 8; ++jn) {
       const int col = c * 64 + jn * 8 + t * 2;
+      if (col >= D) continue;  // the zero columns of a half chunk (D = 96)
       if (row0 < S)
         *reinterpret_cast<__nv_bfloat162*>(ob + row0 * o_ss + col) =
             __floats2bfloat162_rn(acc[c][4 * jn] * r0, acc[c][4 * jn + 1] * r0);
@@ -714,7 +729,9 @@ cudaError_t dispatch_flash(int dtype, const void* q, const void* k, const void* 
       case 16: return launch_flash<16>(q, k, v, o, B, S, Hq, Hkv, st, stream);
       case 32: return launch_flash<32>(q, k, v, o, B, S, Hq, Hkv, st, stream);
       case 64: return launch_flash<64>(q, k, v, o, B, S, Hq, Hkv, st, stream);
+      case 96: return launch_flash<96>(q, k, v, o, B, S, Hq, Hkv, st, stream);
       case 128: return launch_flash<128>(q, k, v, o, B, S, Hq, Hkv, st, stream);
+      case 192: return launch_flash<192>(q, k, v, o, B, S, Hq, Hkv, st, stream);
       case 256: return launch_flash<256>(q, k, v, o, B, S, Hq, Hkv, st, stream);
       default: return cudaErrorInvalidValue;
     }
@@ -724,7 +741,9 @@ cudaError_t dispatch_flash(int dtype, const void* q, const void* k, const void* 
       case 16: return launch_flash_mma<16>(q, k, v, o, B, S, Hq, Hkv, st, stream);
       case 32: return launch_flash_mma<32>(q, k, v, o, B, S, Hq, Hkv, st, stream);
       case 64: return launch_flash_wgmma<64>(q, k, v, o, B, S, Hq, Hkv, st, stream);
+      case 96: return launch_flash_wgmma<96>(q, k, v, o, B, S, Hq, Hkv, st, stream);
       case 128: return launch_flash_wgmma<128>(q, k, v, o, B, S, Hq, Hkv, st, stream);
+      case 192: return launch_flash_wgmma<192>(q, k, v, o, B, S, Hq, Hkv, st, stream);
       case 256: return launch_flash_wgmma<256>(q, k, v, o, B, S, Hq, Hkv, st, stream);
       default: return cudaErrorInvalidValue;
     }

@@ -1,6 +1,6 @@
-// Inline-PTX helpers for the Hopper (sm_90a) attention kernels: mbarriers,
-// TMA tile loads, wgmma on bf16 with f32 accumulation, cp.async, ldmatrix
-// and mma.sync.  Nothing here allocates or synchronises beyond what its
+// Inline-PTX helpers for the Hopper (sm_90a) kernels: mbarriers, TMA tile
+// loads, wgmma on bf16 with f32 accumulation, cp.async, ldmatrix, mma.sync
+// and ex2.  Nothing here allocates or synchronises beyond what its
 // name says.
 #pragma once
 
@@ -55,6 +55,12 @@ __device__ __forceinline__ float exp2_approx(float x) {
 // --- cp.async: 16 bytes global -> shared; src_bytes = 0 writes 16 zero bytes
 __device__ __forceinline__ void cp_async_16(void* dst, const void* src, int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+// 4 bytes global -> shared, through L1 (.ca); src_bytes = 0 writes a zero
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
                "r"(src_bytes)
                : "memory");
 }

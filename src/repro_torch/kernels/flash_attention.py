@@ -13,7 +13,7 @@ import torch
 
 from repro_torch.kernels import _build
 
-HEAD_DIMS = (16, 32, 64, 128, 256)
+HEAD_DIMS = (16, 32, 64, 96, 128, 192, 256)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 

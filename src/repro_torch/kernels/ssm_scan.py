@@ -2,14 +2,16 @@
 (``csrc/ssm_scan.cu``), the ports of the Pallas TPU kernels
 ``repro.kernels.ssm_scan._ssm_kernel`` and ``_ssm_fused_kernel``.
 
-One thread per (b, d, n) state channel walks the whole sequence, so any S is
-taken as it is: unlike the JAX wrappers, these make no padding copies.  They
-check their arguments, allocate y and h_last and launch on the current
-stream.
+K4 walks the whole sequence with one thread per (b, d, n) state channel.  K3
+is a chunked scan: chunks of ``SCAN_CHUNK`` steps are scanned in parallel,
+composed in order, and scanned again from their carried-in state
+(``scan_chunks`` is the plan).  Both take any S as it is: unlike the JAX
+wrappers, these make no padding copies.  They check their arguments,
+allocate y and h_last and launch on the current stream.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Tuple
 
 import torch
 
@@ -17,6 +19,30 @@ from repro_torch.kernels import _build
 
 STATE_DIMS = (1, 2, 4, 8, 16, 32)  # N: one aligned group of lanes per d channel
 MAX_BATCH = 65535                  # the grid's y dimension
+SCAN_CHUNK = 32                    # K3: steps per chunk (kL in the .cu)
+
+
+def scan_chunks(s: int) -> List[Tuple[int, int]]:
+    """K3's chunk plan: the steps ``[start, end)`` of each chunk of a scan of
+    ``s`` steps, in the order their carries compose.  This is the kernel's
+    contract: ``ssm_scan_fused_kernel`` in csrc/ssm_scan.cu computes the same
+    on the device.  The chunks are ``SCAN_CHUNK`` steps long, counted from
+    t = 0 whatever ``s`` is; the last one may be shorter.
+
+    1. Local scans: each chunk c runs h_t = exp(delta_t A) h_{t-1} +
+       delta_t B_t x_t from h = 0 over its steps, giving its end state
+       ``end[c]``, and sums its delta in step order, ``sum[c]``.
+    2. The carry, in order of c: ``h_in[0] = 0``, ``h_in[c + 1] =
+       exp(A sum[c]) h_in[c] + end[c]``: the affine maps of the chunks
+       composed, (a2, b2) o (a1, b1) = (a2 a1, a2 b1 + b2).
+    3. Re-runs: each chunk runs again from ``h_in[c]`` and gives
+       y_t = <h_t, C_t> for its steps.  ``h_last = h_in[len(plan)]``.
+
+    The chunks do not move with S, and a step with delta = 0 changes
+    neither h nor a sum (exp(0) = 1, and adding 0 is exact): so a scan whose
+    last steps have delta = 0 gives y and h_last bit for bit as the scan
+    without them (the JAX wrappers pad S with such steps)."""
+    return [(t, min(t + SCAN_CHUNK, s)) for t in range(0, s, SCAN_CHUNK)]
 
 
 def _check_common(name: str, tensors, b: int, n: int) -> None:

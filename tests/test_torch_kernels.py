@@ -46,6 +46,8 @@ def _np(x) -> np.ndarray:
     (1, 384, 5, 1, 128),     # MQA, odd heads, 3 blocks
     (2, 96, 4, 2, 32),       # ragged (96 < 128)
     (1, 320, 2, 2, 64),      # ragged (320)
+    (1, 128, 2, 2, 96),      # phi3-mini's head dim, MHA
+    (1, 130, 12, 1, 192),    # nemotron-4's head dim and group (G = 12), ragged
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_matches_ref(b, sq, hq, hkv, d, dtype):
@@ -68,6 +70,8 @@ def test_flash_attention_matches_ref(b, sq, hq, hkv, d, dtype):
     (2, 8, 2, 1024, 64, 256),
     (1, 4, 1, 300, 128, 512),   # ragged M (300)
     (4, 2, 2, 64, 32, 64),
+    (2, 4, 4, 200, 96, 128),    # phi3-mini's head dim, MHA
+    (2, 12, 1, 300, 192, 256),  # nemotron-4's head dim and group (G = 12)
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_decode_attention_matches_ref(b, hq, hkv, m, d, block_m, dtype):

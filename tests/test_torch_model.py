@@ -147,8 +147,8 @@ def test_embed_scale_rounds_in_bf16_first():
 # -- prefill + decode --------------------------------------------------------------
 
 
-def _model(arch="gemma-2b", jimpl="xla", timpl="xla"):
-    jcfg, tcfg = _cfgs(arch)
+def _model(arch="gemma-2b", jimpl="xla", timpl="xla", **kw):
+    jcfg, tcfg = _cfgs(arch, **kw)
     jcfg = dataclasses.replace(jcfg, attention_impl=jimpl)
     tcfg = dataclasses.replace(tcfg, attention_impl=timpl)
     jp = JP.init_params(jax.random.PRNGKey(3), JTF.model_defs(jcfg))
@@ -161,10 +161,9 @@ def _close_cache(tc, jc):
     np.testing.assert_array_equal(tc["pos"].numpy(), np.asarray(jc["pos"]))
 
 
-@pytest.mark.parametrize("jimpl,timpl", IMPLS)
-def test_prefill_and_decode_match_jax(jimpl, timpl):
-    jcfg, tcfg, jp, tp = _model(jimpl=jimpl, timpl=timpl)
-    rng = np.random.default_rng(16)
+def _check_prefill_and_decode(jcfg, tcfg, jp, tp, seed):
+    """Prefill of 12 tokens, then 3 decode steps: logits and caches match."""
+    rng = np.random.default_rng(seed)
     toks = rng.integers(1, jcfg.vocab, size=(2, 12)).astype(np.int32)
     jl, jc = j_prefill(jp, jcfg, {"tokens": jnp.asarray(toks)}, max_len=16)
     tl, tc = TDEC.prefill(tp, tcfg, {"tokens": torch.from_numpy(toks).long()}, max_len=16)
@@ -177,6 +176,22 @@ def test_prefill_and_decode_match_jax(jimpl, timpl):
         tl, tc = TDEC.decode_step(tp, tcfg, tc, torch.from_numpy(nxt).long())
         _close(tl, jl)
         _close_cache(tc, jc)
+
+
+@pytest.mark.parametrize("jimpl,timpl", IMPLS)
+def test_prefill_and_decode_match_jax(jimpl, timpl):
+    _check_prefill_and_decode(*_model(jimpl=jimpl, timpl=timpl), seed=16)
+
+
+@pytest.mark.parametrize("jimpl,timpl", IMPLS)
+def test_prefill_and_decode_match_jax_at_head_dim_96(jimpl, timpl):
+    """phi3-mini's head dim (96) on a narrow MHA model: 2 layers, d_model
+    192, 2 heads; the kernels' contract takes it (D = 96 and 192 are in
+    ``HEAD_DIMS``)."""
+    jcfg, tcfg, jp, tp = _model("phi3-mini-3.8b", jimpl, timpl, d_model=192, n_heads=2,
+                                n_kv_heads=2, head_dim=96)
+    assert tcfg.n_layers == 2 and tcfg.resolved_head_dim == 96
+    _check_prefill_and_decode(jcfg, tcfg, jp, tp, seed=18)
 
 
 def test_prefill_truncates_to_the_cache_when_the_prompt_fills_it():

@@ -28,6 +28,7 @@ from repro.serving import ServingEngine as JEngine
 from repro_torch.configs import base as TC
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as R
+from repro_torch.kernels import ssm_scan as kssm
 from repro_torch.launch import serve
 from repro_torch.models import decoding as TDEC
 from repro_torch.models import params as TP
@@ -171,6 +172,68 @@ def test_identity_steps_keep_h_last():
     delta[:, 13:] = 0.0
     y1, h1 = ops.ssm_scan_fused(*_t(delta, B, C, x, A))
     assert torch.equal(h1, h0) and torch.equal(y1[:, :13], y0)
+
+
+# -- K3's chunk plan (kernels/ssm_scan.py::scan_chunks) ---------------------------
+
+
+def _plan_scan(delta, B, C, x, A):
+    """A plain chunked scan built from ``kssm.scan_chunks``: local scans of
+    the chunks from h = 0, the carry in chunk order, then re-runs from each
+    chunk's h_in (the order csrc/ssm_scan.cu computes them in)."""
+    b, s, di = delta.shape
+    plan = kssm.scan_chunks(s)
+
+    def walk(h, lo, hi, y=None):
+        total = torch.zeros(b, di)
+        for t in range(lo, hi):
+            dl = delta[:, t, :, None]
+            h = torch.exp(dl * A) * h + dl * B[:, t, None, :] * x[:, t, :, None]
+            total = total + delta[:, t]
+            if y is not None:
+                y[:, t] = (h * C[:, t, None, :]).sum(-1)
+        return h, total
+
+    h_in = [torch.zeros(b, di, A.shape[1])]
+    for lo, hi in plan:
+        end, total = walk(h_in[0].new_zeros(h_in[0].shape), lo, hi)
+        h_in.append(torch.exp(A * total[..., None]) * h_in[-1] + end)
+    y = torch.empty(b, s, di)
+    for (lo, hi), h0 in zip(plan, h_in):
+        walk(h0, lo, hi, y)
+    return y, h_in[-1]
+
+
+@pytest.mark.parametrize("s", [0, 1, 31, 32, 33, 77, 512, 1000])
+def test_scan_chunks_are_fixed_and_cover_the_sequence(s):
+    """Chunks of SCAN_CHUNK steps from t = 0, in order, the last one ragged:
+    a longer sequence keeps every whole chunk of a shorter one."""
+    plan = kssm.scan_chunks(s)
+    assert [t for lo, hi in plan for t in range(lo, hi)] == list(range(s))
+    assert all(lo % kssm.SCAN_CHUNK == 0 and 0 < hi - lo <= kssm.SCAN_CHUNK for lo, hi in plan)
+    longer = kssm.scan_chunks(s + 45)
+    assert longer[:s // kssm.SCAN_CHUNK] == plan[:s // kssm.SCAN_CHUNK]
+
+
+@pytest.mark.parametrize("s", [1, 31, 77, 512])
+def test_chunk_plan_scan_matches_ref(s):
+    delta, B, C, x, A = _t(*_fused_inputs(2, s, 8, 16, seed=500 + s))
+    y_want, h_want = R.ssm_scan_ref(*R.ssm_discretize(delta, B, x, A), C)
+    y_got, h_got = _plan_scan(delta, B, C, x, A)
+    _close(y_got, y_want, KTOL)
+    _close(h_got, h_want, KTOL)
+
+
+def test_chunk_plan_keeps_identity_steps_exact():
+    """A tail of delta = 0 (and C = 0) steps after step 437 of 512 leaves
+    h_last and y bit for bit as the 437-step scan gives them, and y = 0 on
+    the tail: the plan's chunks do not move with S."""
+    delta, B, C, x, A = _fused_inputs(1, 512, 8, 16, seed=7)
+    y0, h0 = _plan_scan(*_t(delta[:, :437], B[:, :437], C[:, :437], x[:, :437], A))
+    delta[:, 437:], C[:, 437:] = 0.0, 0.0
+    y1, h1 = _plan_scan(*_t(delta, B, C, x, A))
+    assert torch.equal(h1, h0) and torch.equal(y1[:, :437], y0)
+    assert not bool(y1[:, 437:].any())
 
 
 # -- the SSM mixer against repro.models.ssm ---------------------------------------
