@@ -57,6 +57,23 @@ Phases, in order; any failure exits non-zero with its traceback:
 7. breakdown - profiles of the prefill (1 x 512 tokens) and the decode tick
                of gemma-2b and of hymba-1.5b in the bf16 serve engine: the
                top six device ops and the port's kernels wherever they rank.
+8. train     - ``repro_torch.launch.train.train`` on the card, which calls
+               no kernel (the launch counters must not move): (a) gemma-2b
+               at full width in bf16, B=4, S=512, 4 AdamW steps without
+               remat: finite losses and grad norms, every param leaf moved
+               by step 1; ms/step over steps 2-4, tokens/s, peak memory and
+               the step's bound; then one such step profiled, and its
+               forward, backward and AdamW update timed apart.  (b) gemma-2b
+               at full width cut to 2 layers in f32, B=1, S=128, wq and wk
+               rescaled so the scores are O(1): one step on the card and
+               one on the CPU from the same params: loss and grad norm
+               within 1e-5 relative, every moment and new param within 2e-4
+               of its leaf's max |x| (new params near a zero grad aside, see
+               ``_parity_faults``); the gate must reject a step on half the
+               tokens.  (c) the smoke config with checkpoints: a crash at
+               step 6 (a checkpoint every 4), then a resume from step 4
+               whose losses match an uninterrupted run's within 1e-6
+               relative.
 
 The last three lines are the card's name and power limit, one JSON object
 with the per-kernel numbers, and ``{"ok": true, "device": {...}}``.
@@ -65,6 +82,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import re
 import subprocess
 import sys
@@ -102,6 +120,13 @@ SERVE_RUNS = [
 # depth.  phi3-mini's 32 layers are cut to 4: its K1 and K2 at D = 96 are
 # the point, and each layer adds seconds of plain f32 attention
 PARITY_RUNS = [("gemma-2b", None), ("hymba-1.5b", None), ("phi3-mini-3.8b", 4)]
+# phase 8: (arch, batch, seq, steps) of the full-width run, (arch, layers,
+# batch, seq) of the card-against-CPU step, and its tolerances
+TRAIN_FULL = ("gemma-2b", 4, 512, 4)
+TRAIN_PARITY = ("gemma-2b", 2, 1, 128)
+TRAIN_REL_TOL = 1e-5  # loss and grad norm, card against CPU
+TRAIN_LEAF_TOL = 2e-4  # moments and new params: of the leaf's max |x|
+RESUME_REL_TOL = 1e-6  # resumed losses against the uninterrupted run's
 # the serve run whose counts stand in the kernels JSON as each kernel's launches
 MAIN_PATH = {"flash_attention": "gemma-2b", "decode_attention": "gemma-2b",
              "ssm_scan": "hymba-1.5b assoc", "ssm_scan_fused": "hymba-1.5b chunked"}
@@ -1047,10 +1072,10 @@ def phase_timing(worst: dict, serves: dict, fresh: dict) -> list:
     return list(out.values())
 
 
-def _profile(what: str, fn) -> None:
+def _profile(what: str, fn) -> tuple:
     """Wall time, device busy time and the top device ops of one fn().  A
     profiling session that saw no device time is repeated (fn runs again),
-    up to three sessions in all."""
+    up to three sessions in all.  Returns (busy ms, wall ms)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1080,6 +1105,7 @@ def _profile(what: str, fn) -> None:
             log("breakdown", f"  {e.self_device_time_total / 1e3:.3f} ms "
                 f"({100 * e.self_device_time_total / busy_us:.1f}% of busy, rank {i + 1}) "
                 f"x{e.count} {e.key[:90]}")
+    return busy_us / 1e3, wall * 1e3
 
 
 def phase_breakdown(arch: str) -> None:
@@ -1110,6 +1136,282 @@ def phase_breakdown(arch: str) -> None:
     torch.cuda.empty_cache()
 
 
+def train_full() -> dict:
+    """(a) the full-width bf16 run through the train loop."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as T
+    from repro_torch.models.params import count_params, tree_leaves, tree_paths
+    from repro_torch.models.transformer import model_defs
+    from repro_torch.steps import init_model
+
+    arch, b, s, steps = TRAIN_FULL
+    cfg = get_config(arch)
+    # step 0's params, drawn as train() draws them (same seed, same device)
+    init = [t.cpu() for t in tree_leaves(init_model(cfg, seed=0, device="cuda")[1])]
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    history, stamps = [], []
+
+    def on_step(step, params, m):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        history.append(m)
+        if step == 0:  # every leaf must have moved: a missing grad would leave one
+            for (path, p), q in zip(tree_paths(params), init):
+                if torch.equal(p.detach().cpu(), q):
+                    raise AssertionError(f"train: {path} did not move in step 1")
+            stamps[-1] = time.perf_counter()  # the check is not a step
+
+    t0 = time.perf_counter()
+    result = T.train(cfg, steps, b, s, remat=False, on_step=on_step, device="cuda")
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    for i, m in enumerate(history):
+        if not all(map(math.isfinite, m.values())) or m["grad_norm"] <= 0:
+            raise AssertionError(f"train {arch}: step {i + 1} metrics {m}")
+    if result["state"] != "done" or len(history) != steps:
+        raise AssertionError(f"train {arch}: {result}")
+    ms = (stamps[-1] - stamps[0]) / (steps - 1) * 1e3
+    n = count_params(model_defs(cfg))
+    flops = 6 * n * b * s  # forward and backward of every param, per token
+    adam_bytes = 22 * n  # bf16 p and g, f32 mu and nu: read p g mu nu, write p mu nu
+    bound_ms = (flops / BF16_FLOPS + adam_bytes / HBM_BYTES_PER_S) * 1e3
+    losses = [round(m["loss"], 4) for m in history]
+    gnorms = [round(m["grad_norm"], 4) for m in history]
+    log("train", f"a. {arch} full width {cfg.dtype} ({n} params), B={b} S={s}, {steps} steps, no "
+        f"remat: losses {losses}, grad norms {gnorms}; every param leaf moved in step 1")
+    log("train", f"a. {ms:.2f} ms/step over steps 2-{steps} = {b * s / ms * 1e3:.0f} tokens/s; "
+        f"peak memory {peak / 2**30:.2f} GiB ({peak} bytes); bound {bound_ms:.2f} ms "
+        f"({flops / 1e12:.2f} TFLOP at {BF16_FLOPS / 1e12:.0f} TFLOP/s bf16 + AdamW "
+        f"{adam_bytes / 1e9:.2f} GB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s), share "
+        f"{bound_ms / ms:.3f}; {wall:.1f} s in all with init")
+    torch.cuda.empty_cache()
+    return {"ms_per_step": ms, "tokens_per_s": b * s / ms * 1e3, "peak_bytes": peak,
+            "bound_ms": bound_ms, "share": bound_ms / ms, "losses": losses}
+
+
+def _drift(got, want) -> float:
+    """max |got - want| / max |want| over one leaf (CPU tensors)."""
+    return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+
+
+def _tame(params: dict, cfg) -> dict:
+    """``params`` with wq and wk rescaled (in place) to std 1/sqrt(d_model),
+    so the attention scores are O(1).  The reference draws wk at std 1 (its
+    fan-in is n_kv_heads): its scores run in the hundreds, the softmax
+    backward of those near one-hot rows cancels, and a change of the input
+    at f32 rounding moves the 2-layer grads by percents."""
+    import torch
+
+    attn = params["blocks"]["attn"]
+    with torch.no_grad():
+        attn["wq"].mul_(math.sqrt(cfg.n_heads / cfg.d_model))
+        attn["wk"].mul_(math.sqrt(cfg.n_kv_heads / cfg.d_model))
+    return params
+
+
+def _parity_faults(run: dict, cpu: dict, lr: float) -> tuple:
+    """(faults, worst) of one step's ``run`` against the CPU's: loss and grad
+    norm within TRAIN_REL_TOL relative; each moment leaf and new-param leaf
+    within TRAIN_LEAF_TOL of its max |x|.  A new param may miss that only
+    where Adam's first step turns on the grad's last digits: where the
+    CPU's first moment is within TRAIN_LEAF_TOL of its leaf's max (clipped
+    grads of the order of eps, where g / (|g| + eps) is not fixed by f32),
+    by at most 2 lr, and in fewer than 0.1% of the params.  ``worst`` maps
+    each quantity to (drift, leaf)."""
+    faults, worst = [], {}
+    for k in ("loss", "grad_norm"):
+        rel = abs(run["m"][k] - cpu["m"][k]) / abs(cpu["m"][k])
+        worst[k] = (rel, "")
+        if not rel <= TRAIN_REL_TOL:
+            faults.append(f"{k} {run['m'][k]} vs the CPU's {cpu['m'][k]} (rel {rel:.2e})")
+    for key in ("mu", "nu", "params"):
+        for (path, want), (_, got) in zip(cpu[key], run[key]):
+            d = _drift(got, want)
+            if key not in worst or d > worst[key][0]:
+                worst[key] = (d, path)
+            if key != "params" and not d <= TRAIN_LEAF_TOL:
+                faults.append(f"{key} {path} drifts {d:.3e} of max |x|")
+    off = n = 0
+    for (path, want), (_, got), (_, mu) in zip(cpu["params"], run["params"], cpu["mu"]):
+        err = (got - want).abs()
+        miss = err > TRAIN_LEAF_TOL * float(want.abs().max())
+        n += want.numel()
+        if not miss.any():
+            continue
+        off += int(miss.sum())
+        mu = mu.abs()
+        if not bool((mu[miss] <= TRAIN_LEAF_TOL * float(mu.max())).all()):
+            faults.append(f"new {path} misses {TRAIN_LEAF_TOL} of max |x| where the grad "
+                          f"is not ~0")
+        if float(err[miss].max()) > 2 * lr:
+            faults.append(f"new {path} beyond 2 lr of the CPU's")
+    worst["near-zero-grad params"] = (off, f"of {n}")
+    if off >= 1e-3 * n:
+        faults.append(f"{off} of {n} new params miss {TRAIN_LEAF_TOL} of max |x|")
+    return faults, worst
+
+
+def train_parity() -> dict:
+    """(b) one f32 step on the card and one on the CPU from the same params
+    (the reference's draw with wq and wk tamed, ``_tame``), held by
+    ``_parity_faults``.  TF32 is off (phase 1).  The gate must also reject
+    a step with a planted fault: the card's step on the batch with the
+    second half of its tokens masked out."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticDataset
+    from repro_torch.models.params import tree_map, tree_paths
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.steps import init_model, make_train_step
+
+    arch, layers, b, s = TRAIN_PARITY
+    cfg = get_config(arch, n_layers=layers, dtype="float32")
+    opt_cfg = AdamWConfig(lr=1e-2, warmup_steps=1, total_steps=1)
+    batch = SyntheticDataset(DataConfig(cfg.vocab, s, b, seed=0)).batch(0)
+    planted = dict(batch, mask=batch["mask"].copy())
+    planted["mask"][:, s // 2:] = 0.0
+    _, params = init_model(cfg, seed=0, device="cuda")
+    params = _tame(params, cfg)
+    host = lambda t: t.detach().to("cpu", copy=True)
+    runs = {}
+    for name, dev, data in (("cpu", "cpu", batch), ("card", "cuda", batch),
+                            ("planted", "cuda", planted)):
+        p = tree_map(lambda t: t.detach().to(dev, copy=True), params)  # updated in place
+        t0 = time.perf_counter()
+        new, opt, m = make_train_step(cfg, opt_cfg, remat=False)(
+            p, adamw_init(p), {k: torch.from_numpy(v).to(dev) for k, v in data.items()})
+        run = {"m": {k: float(v) for k, v in m.items()}, "s": time.perf_counter() - t0,
+               **{k: [(path, host(t)) for path, t in tree_paths(tree)]
+                  for k, tree in (("params", new), ("mu", opt["mu"]), ("nu", opt["nu"]))}}
+        del p, new, opt
+        if name == "cpu":
+            cpu = run
+        else:
+            runs[name] = _parity_faults(run, cpu, cpu["m"]["lr"]) + (run,)
+    del params
+    torch.cuda.empty_cache()
+    (faults, worst, card), (planted_faults, _, bad) = runs["card"], runs["planted"]
+    if faults:
+        raise AssertionError("train parity, card against CPU: " + "; ".join(faults))
+    if not planted_faults:
+        raise AssertionError("train parity: the gate let a step on half the tokens pass")
+    log("train", f"b. {arch} cut to {layers} layers, f32, wq/wk tamed, B={b} S={s}: one step "
+        f"on the card ({card['s']:.2f} s) and on the CPU ({cpu['s']:.2f} s): loss "
+        f"{card['m']['loss']:.6f} / {cpu['m']['loss']:.6f}, grad norm "
+        f"{card['m']['grad_norm']:.6f} / {cpu['m']['grad_norm']:.6f}")
+    log("train", "b. worst drift from the CPU (held to "
+        f"{TRAIN_REL_TOL} relative, leaves {TRAIN_LEAF_TOL} of max |x|): "
+        + "; ".join(f"{k} {v:.3e} {where}".rstrip() if isinstance(v, float) else
+                    f"{k} {v} {where}" for k, (v, where) in worst.items()))
+    log("train", f"b. planted fault (the card's step with tokens {s // 2}-{s - 1} masked "
+        f"out; loss {bad['m']['loss']:.6f}, grad norm {bad['m']['grad_norm']:.6f}) rejected: "
+        f"{len(planted_faults)} faults, first: {planted_faults[0]}")
+    return {"worst": {k: v[0] for k, v in worst.items()}, "planted_faults": len(planted_faults)}
+
+
+def train_breakdown() -> dict:
+    """One full-width step of (a), profiled (device busy time against wall
+    time, the top device ops), then the step's body once more with CUDA
+    events around its forward, backward and AdamW update, and the grad
+    norm of each layer's block params."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticDataset
+    from repro_torch.models.params import tree_leaves, tree_map
+    from repro_torch.models.transformer import forward_train
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+    from repro_torch.steps import init_model, make_train_step
+
+    arch, b, s, _ = TRAIN_FULL
+    cfg = get_config(arch)
+    _, params = init_model(cfg, seed=0, device="cuda")
+    opt = adamw_init(params)
+    batch = {k: torch.from_numpy(v).to("cuda") for k, v in
+             SyntheticDataset(DataConfig(cfg.vocab, s, b, seed=0)).batch(0).items()}
+    step = make_train_step(cfg, remat=False)
+    step(params, opt, batch)  # warm-up; the params now require grad
+    busy_ms, wall_ms = _profile(f"{arch} train step (B={b} S={s})",
+                                lambda: step(params, opt, batch))
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    ev[0].record()
+    total, _ = forward_train(params, cfg, batch, remat=False)
+    ev[1].record()
+    total.backward()
+    ev[2].record()
+    with torch.no_grad():  # each layer's grad norm, over its block leaves
+        layer_norms = torch.stack([
+            torch.linalg.vector_norm(p.grad, dim=tuple(range(1, p.grad.dim())),
+                                     dtype=torch.float32) ** 2
+            for p in tree_leaves(params["blocks"])]).sum(0).sqrt().tolist()
+        ev[3].record()
+        adamw_update(tree_map(lambda p: p.grad, params), opt, params, AdamWConfig())
+    ev[4].record()
+    torch.cuda.synchronize()
+    parts = {name: ev[i].elapsed_time(ev[i + 1])
+             for i, name in ((0, "forward"), (1, "backward"), (3, "adamw"))}
+    log("breakdown", f"{arch} train step by part (CUDA events): "
+        + ", ".join(f"{k} {v:.2f} ms" for k, v in parts.items()))
+    log("breakdown", f"{arch} grad norm of each layer's block params, layer 0 to "
+        f"{len(layer_norms) - 1} (the reference's init): "
+        + ", ".join(f"{x:.3g}" for x in layer_norms))
+    del params, opt, step, total
+    torch.cuda.empty_cache()
+    return {"busy_ms": busy_ms, "wall_ms": wall_ms, "layer_grad_norms": layer_norms, **parts}
+
+
+def train_resume() -> dict:
+    """(c) crash at step 6 and resume from the step-4 checkpoint, on the card."""
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import ObjectStore
+    from repro_torch.launch import train as T
+
+    cfg = get_smoke_config("gemma-2b")
+    full = T.train(cfg, 10, 4, 64, device="cuda")
+    with tempfile.TemporaryDirectory() as d:
+        mgr = lambda: CheckpointManager(ObjectStore(root=d), "ckpt", "run")
+        try:
+            T.train(cfg, 10, 4, 64, mgr=mgr(), ckpt_every=4, crash_at_step=6, device="cuda")
+        except RuntimeError as e:
+            if "injected crash at step 6" not in str(e):
+                raise
+        else:
+            raise AssertionError("train: crash_at_step=6 did not crash")
+        resumed = T.train(cfg, 10, 4, 64, mgr=mgr(), ckpt_every=4, device="cuda")
+    want = full["history"][4:]
+    rel = max(abs(g - w) / abs(w) for g, w in zip(resumed["history"], want))
+    if resumed["start_step"] != 4 or len(resumed["history"]) != 6 or rel > RESUME_REL_TOL:
+        raise AssertionError(f"train resume: {resumed} vs uninterrupted {full['history']}")
+    log("train", f"c. {cfg.name} crash at step 6, resumed from step {resumed['start_step']}: "
+        f"losses of steps 5-10 within {rel:.2e} relative of the uninterrupted run's "
+        f"({[round(x, 4) for x in want]})")
+    return {"resume_rel": rel}
+
+
+def phase_train() -> dict:
+    """Phase 8: training calls no kernel, so the launch counters stay as
+    they are across it."""
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    before = ops.launches()
+    out = {"full": train_full(), "breakdown": train_breakdown(), "parity": train_parity(),
+           "resume": train_resume()}
+    if ops.launches() != before:
+        raise AssertionError(f"train launched kernels: {before} -> {ops.launches()}")
+    out["seconds"] = time.perf_counter() - t0
+    log("train", f"phase took {out['seconds']:.1f}s; kernel launches unchanged {before}")
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     smi = phase_device()
@@ -1124,6 +1426,7 @@ def main() -> int:
     kernels = phase_timing(worst, serves, fresh)
     for arch in ("gemma-2b", "hymba-1.5b"):
         phase_breakdown(arch)
+    phase_train()
     log("done", f"all phases passed in {time.perf_counter() - t_start:.1f}s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

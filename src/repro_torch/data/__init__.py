@@ -1,0 +1,2 @@
+"""Deterministic synthetic token batches (numpy only)."""
+from repro_torch.data.pipeline import DataConfig, SyntheticDataset, dataset_for

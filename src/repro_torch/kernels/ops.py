@@ -14,6 +14,13 @@ version is not counted); one K2 call runs two grids, split and combine.
 The scans take any S: the kernels need no chunk multiple, so there is no
 padding here (the JAX wrappers pad with identity steps, which leave y and
 h_last as they are).
+
+No kernel has a backward, here or in the JAX package (which cannot
+differentiate its Pallas calls either).  A kernel's output is a fresh tensor
+with no ``grad_fn``, so a backward pass through it would leave everything
+upstream without a gradient, silently.  So each wrapper refuses, on every
+device, a call under grad mode with an input that requires grad.  Training
+runs ``attention_impl="xla"`` on the dense family, which reaches no kernel.
 """
 from __future__ import annotations
 
@@ -31,8 +38,20 @@ from repro_torch.kernels.ssm_scan import check_scan_args as _check_scan
 from repro_torch.kernels.ssm_scan import ssm_scan_bsdn, ssm_scan_fused_bsd
 
 
+def no_backward_message(name: str) -> str:
+    return (f"{name}: the kernel has no backward, in the port or in the JAX package, "
+            "so a gradient cannot flow through it; training uses attention_impl='xla' "
+            "(the dense family), which calls no kernel")
+
+
+def _refuse_grad(name: str, *tensors: torch.Tensor) -> None:
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(no_backward_message(name))
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Causal GQA attention.  q: (B,S,Hq,D); k,v: (B,S,Hkv,D) -> (B,S,Hq,D)."""
+    _refuse_grad("flash_attention", q, k, v)
     if q.device.type == "cpu":
         _check_flash(q, k, v)
         out = _ref.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
@@ -47,6 +66,7 @@ def decode_attention(q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tens
                      lengths: torch.Tensor) -> torch.Tensor:
     """q: (B,1,Hq,D); cache_{k,v}: (B,M,Hkv,D); lengths (B,) int32 ->
     (B,1,Hq,D).  Cache slots at or past ``lengths`` are masked."""
+    _refuse_grad("decode_attention", q, cache_k, cache_v)
     if q.device.type == "cpu":
         _check_decode(q, cache_k, cache_v, lengths)
         out = _ref.decode_attention_ref(q[:, 0], cache_k.transpose(1, 2),
@@ -61,6 +81,7 @@ def ssm_scan(dA: torch.Tensor, dBx: torch.Tensor, C: torch.Tensor
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K4: h_t = dA_t * h_{t-1} + dBx_t, y_t = <h_t, C_t>.  dA, dBx:
     (B,S,di,N) f32; C: (B,S,N) f32 -> (y (B,S,di), h_last (B,di,N)) f32."""
+    _refuse_grad("ssm_scan", dA, dBx, C)
     if dA.device.type == "cpu":
         _check_scan(dA, dBx, C)
         return _ref.ssm_scan_ref(dA, dBx, C)
@@ -74,6 +95,7 @@ def ssm_scan_fused(delta: torch.Tensor, B: torch.Tensor, C: torch.Tensor, x: tor
     """K3: the scan with its discretisation (dA = exp(delta A), dBx = delta B
     x) fused in.  delta, x: (B,S,di); B, C: (B,S,N); A: (di,N); f32 ->
     (y (B,S,di), h_last (B,di,N)) f32."""
+    _refuse_grad("ssm_scan_fused", delta, B, C, x, A)
     if delta.device.type == "cpu":
         _check_fused(delta, B, C, x, A)
         return _ref.ssm_scan_ref(*_ref.ssm_discretize(delta, B, x, A), C)

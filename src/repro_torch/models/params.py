@@ -46,6 +46,33 @@ def tree_leaves(tree: Any) -> List[Any]:
     return [tree]
 
 
+def tree_paths(tree: Any, prefix: str = "") -> List[Tuple[str, Any]]:
+    """(path, leaf) pairs in ``tree_leaves`` order, each path formatted as
+    ``jax.tree_util.keystr`` formats it: ``['blocks']['attn']['wq']``, and
+    ``[0]`` for a list item."""
+    if isinstance(tree, dict):
+        return [pl for k in sorted(tree) for pl in tree_paths(tree[k], f"{prefix}[{k!r}]")]
+    if isinstance(tree, (list, tuple)):
+        return [pl for i, v in enumerate(tree) for pl in tree_paths(v, f"{prefix}[{i}]")]
+    return [(prefix, tree)]
+
+
+def tree_unflatten(like: Any, leaves: List[Any]) -> Any:
+    """``leaves``, in ``tree_leaves`` order, in the structure of ``like``."""
+    if len(leaves) != len(tree_leaves(like)):
+        raise ValueError(f"{len(leaves)} leaves for a tree of {len(tree_leaves(like))}")
+    it = iter(leaves)
+
+    def build(t: Any) -> Any:
+        if isinstance(t, dict):
+            return {k: build(t[k]) for k in sorted(t)}
+        if isinstance(t, (list, tuple)):
+            return type(t)(build(v) for v in t)
+        return next(it)
+
+    return build(like)
+
+
 def _init_leaf(d: ParamDef, generator: torch.Generator, device) -> torch.Tensor:
     if d.init == "zeros":
         return torch.zeros(d.shape, dtype=d.dtype, device=device)

@@ -10,12 +10,23 @@ Port of the dense and hybrid parts of ``repro.models.transformer``:
 Per-layer params are stacked on a leading L dim; a Python loop over that dim
 replaces ``lax.scan``.  The other families (moe, ssm, encdec, vlm) are not
 ported yet and raise ``NotImplementedError``.
+
+``forward_train`` trains the dense family with ``attention_impl="xla"``, as
+the reference's ``train_job`` does: no kernel has a backward (see
+``kernels/ops.py``), so the kernel routes (``"pallas"`` attention, and the
+hybrid block's scans) raise under grad.  With ``remat=True`` each block runs
+under ``torch.utils.checkpoint`` and is recomputed whole in the backward.
+The reference's policy (``dots_with_no_batch_dims_saveable``) keeps the
+matmul outputs and recomputes only the elementwise ops between them.  Both
+give the same numbers; the port saves only each block's input, so it holds
+less memory and does the block's matmuls once more.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, List, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
@@ -61,8 +72,21 @@ def model_defs(cfg: ModelConfig) -> Params:
 
 
 def layer_params(blocks: Params, i: int) -> Params:
-    """Layer i's params from the stacked blocks."""
+    """Layer i's params from the stacked blocks (the serving paths, which run
+    without grad)."""
     return tree_map(lambda t: t[i], blocks)
+
+
+def unbind_layers(blocks: Params) -> List[Params]:
+    """Every layer's params from the stacked blocks, one ``torch.unbind`` per
+    leaf.  Under grad, its backward stacks the L layer grads once; a ``t[i]``
+    per layer would build a zero tensor the size of the whole leaf for each
+    layer and sum L of them."""
+    if isinstance(blocks, dict):
+        per_key = {k: unbind_layers(v) for k, v in blocks.items()}
+        n = len(next(iter(per_key.values())))
+        return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+    return list(torch.unbind(blocks, 0))
 
 
 def mix(p: Params, x: torch.Tensor, attn_out: torch.Tensor, ssm_out: torch.Tensor
@@ -99,3 +123,39 @@ def _embed_inputs(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tenso
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
     return x, positions, tokens
+
+
+# ---------------------------------------------------------------------------
+# Training forward + loss
+# ---------------------------------------------------------------------------
+
+
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor, mask: torch.Tensor
+                  ) -> torch.Tensor:
+    """Mean next-token NLL over the mask, in f32: sum((lse - gold) * mask) /
+    max(sum(mask), 1)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    nll = (lse - gold) * mask
+    return nll.sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def forward_train(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+                  remat: bool = True) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(total, {"loss", "aux"}) for a batch of {tokens, targets (B,S) int32,
+    mask (B,S) f32}; total = loss + 0.01 * aux, and aux is a zero f32 scalar
+    (it is the moe load-balance loss in the reference, and moe is not
+    ported)."""
+    x, positions, _ = _embed_inputs(params, cfg, batch)
+
+    def block(p: Params, h: torch.Tensor) -> torch.Tensor:
+        return _apply_block(p, h, positions, cfg)[0]
+
+    for lp in unbind_layers(params["blocks"]):
+        x = checkpoint(block, lp, x, use_reentrant=False) if remat else block(lp, x)
+    x = L.apply_norm(params["ln_f"], x, cfg.norm)
+    logits = L.unembed(params["embed"], x, cfg)
+    loss = cross_entropy(logits, batch["targets"], batch["mask"])
+    aux = torch.zeros((), dtype=torch.float32, device=loss.device)
+    return loss + 0.01 * aux, {"loss": loss, "aux": aux}
