@@ -17,7 +17,8 @@ Phases, in order; any failure exits non-zero with its traceback:
 3. kernels   - each CUDA kernel against its plain PyTorch version on the card:
                attention in f32 (tol 2e-5) and bf16 (tol 2e-2) at gemma's,
                hymba's, phi3-mini's (D=96) and nemotron-4's (D=192, G=12)
-               head shapes, ragged shapes, S = 1 and 65, every head
+               head shapes, granite-moe's (24/8, D=64) and moonlight's
+               (16/16, D=128), ragged shapes, S = 1 and 65, every head
                dim and GQA; decode also with NaN past lengths, a row of
                length 0 (output 0), G = 16 and lengths below the number of
                splits; the scans (K3, K4) in f32 (tol 2e-5) at hymba's
@@ -25,8 +26,9 @@ Phases, in order; any failure exits non-zero with its traceback:
                staged in 4-byte copies (N = 2, and views one float into a
                projection), and with identity steps at the end, which must
                leave h_last as it was.
-4. parity    - gemma-2b, hymba-1.5b (both prefill scans), then phi3-mini-3.8b
-               with its depth cut to 4 layers, at full width
+4. parity    - gemma-2b, hymba-1.5b (both prefill scans), then phi3-mini-3.8b,
+               granite-moe-3b-a800m and moonshot-v1-16b-a3b with their
+               depth cut to 4 layers, at full width
                in f32: prefill + 4 decode steps through the kernels
                (attention_impl="pallas") and through plain PyTorch ("xla",
                the scans through their plain versions): every layer and the
@@ -35,12 +37,21 @@ Phases, in order; any failure exits non-zero with its traceback:
                depth, the drift beside a control that perturbs the plain
                route's input at f32 rounding.  The launch counters must rise
                by n_layers per prefill and per decode step, for each kernel on
-               the route, and stay at 0 on the plain route.
+               the route, and stay at 0 on the plain route.  The moe family
+               records every router call on both routes on the same input: a
+               token whose experts differ must be a near-tie on the plain
+               route (logit gap <= FLIP_GAP), a token whose kept experts
+               alone differ must share its group with such a flip; those
+               tokens are counted and left out of the 1e-5 checks (every
+               token's MoE input is held).  The depth chains and the full
+               depth are held to the control as for the other families.
 5. serve     - ``repro_torch.launch.serve.main`` at full width in bf16 (8
                slots, 512-token prompts, 32 new tokens each): gemma-2b (K1,
                K2), hymba-1.5b with the default scan (K1, K4, K2) and with
                ``--scan-impl chunked`` (K1, K3, K2), 16 requests each, and
-               phi3-mini-3.8b (K1, K2 at D = 96), 8 requests; every
+               phi3-mini-3.8b (K1, K2 at D = 96), 8 requests, and
+               granite-moe-3b-a800m (K1, K2 at 24/8, D = 64; the MoE in
+               plain PyTorch), 16 requests; every
                request must complete and every prefill/decode must have gone
                through the kernels (counters set to 0 before each run).
 6. timing    - each kernel at its serve shapes: its device time (profiler;
@@ -53,10 +64,14 @@ Phases, in order; any failure exits non-zero with its traceback:
                calls), and the roofline bound (bytes, FLOPs and, for K3, its
                exps on the SFU at the card's max SM clock); each kernel's
                time over the library's and its bound over its time; K1 and
-               K2 also at phi3-mini's and nemotron-4's heads.
+               K2 also at phi3-mini's, nemotron-4's and granite-moe's heads.
 7. breakdown - profiles of the prefill (1 x 512 tokens) and the decode tick
-               of gemma-2b and of hymba-1.5b in the bf16 serve engine: the
-               top six device ops and the port's kernels wherever they rank.
+               of gemma-2b, hymba-1.5b and granite-moe-3b-a800m in the bf16
+               serve engine: the top six device ops and the port's kernels
+               wherever they rank; for granite-moe also the device time of
+               its MoE layers, router and expert FFNs (the rest of the
+               layer is the capacity dispatch and combine) and each step's
+               bound.
 8. train     - ``repro_torch.launch.train.train`` on the card, which calls
                no kernel (the launch counters must not move): (a) gemma-2b
                at full width in bf16, B=4, S=512, 4 AdamW steps without
@@ -103,6 +118,10 @@ PARITY_REL_TOL = 1e-5  # full-width f32: max error / max |reference|
 # an f32 rounding of the input already grows to half that tolerance (gemma)
 PARITY_DEPTH = 1
 CHAOS_FACTOR = 10  # most kernel-route drift per unit of the control's drift
+# moe: a token may take other experts on a kernel route, on the same input,
+# only where the plain route's k-th and (k+1)-th router logits are this close
+# (a kernel error at PARITY_REL_TOL moves a logit by ~1e-5)
+FLIP_GAP = 1e-4
 
 SERVE_COMMON = ["--full-width", "--attention-impl", "pallas", "--device", "cuda",
                 "--max-batch", "8", "--prefill-len", "512", "--max-len", "1024",
@@ -115,11 +134,16 @@ SERVE_RUNS = [
     ("hymba-1.5b chunked", ["--arch", "hymba-1.5b", "--scan-impl", "chunked", "--requests", "16"]
      + SERVE_COMMON),
     ("phi3-mini-3.8b", ["--arch", "phi3-mini-3.8b", "--requests", "8"] + SERVE_COMMON),
+    ("granite-moe-3b-a800m", ["--arch", "granite-moe-3b-a800m", "--requests", "16"]
+     + SERVE_COMMON),
 ]
 # (arch, depth) of the full-width f32 parity runs; None keeps the published
 # depth.  phi3-mini's 32 layers are cut to 4: its K1 and K2 at D = 96 are
-# the point, and each layer adds seconds of plain f32 attention
-PARITY_RUNS = [("gemma-2b", None), ("hymba-1.5b", None), ("phi3-mini-3.8b", 4)]
+# the point, and each layer adds seconds of plain f32 attention.  The moe
+# family at 4 layers: granite-moe (GQA 24/8, D = 64, 40 experts top-8) and
+# moonlight (MHA 16/16, D = 128, 64 experts top-6, 2 shared)
+PARITY_RUNS = [("gemma-2b", None), ("hymba-1.5b", None), ("phi3-mini-3.8b", 4),
+               ("granite-moe-3b-a800m", 4), ("moonshot-v1-16b-a3b", 4)]
 # phase 8: (arch, batch, seq, steps) of the full-width run, (arch, layers,
 # batch, seq) of the card-against-CPU step, and its tolerances
 TRAIN_FULL = ("gemma-2b", 4, 512, 4)
@@ -519,7 +543,10 @@ def phase_kernels() -> dict:
                       (2, 65, 8, 1, 256), (1, 65, 25, 5, 64), (2, 130, 4, 2, 16),
                       (1, 100, 4, 1, 32), (1, 200, 16, 4, 128),
                       (1, 512, 32, 32, 96), (2, 77, 32, 32, 96), (1, 512, 96, 8, 192),
-                      (2, 77, 96, 8, 192)]:
+                      (2, 77, 96, 8, 192),
+                      # granite-moe's (24/8, G = 3, D = 64) and moonlight's (16/16, D = 128)
+                      (1, 512, 24, 8, 64), (2, 77, 24, 8, 64), (1, 512, 16, 16, 128),
+                      (2, 77, 16, 16, 128)]:
             q, k, v = _flash_inputs(*shape, dtype, seed=sum(shape))
             got = ops.flash_attention(q, k, v)
             torch.cuda.synchronize()
@@ -540,7 +567,11 @@ def phase_kernels() -> dict:
                                ((8, 1024, 32, 32, 96), [1, 33, 100, 512, 513, 530, 777, 1024]),
                                ((3, 300, 32, 32, 96), [0, 300, 17]),
                                ((8, 1024, 96, 8, 192), [1, 33, 100, 512, 513, 530, 777, 1024]),
-                               ((4, 512, 96, 8, 192), [0, 5, 512, 300])]:
+                               ((4, 512, 96, 8, 192), [0, 5, 512, 300]),
+                               ((8, 1024, 24, 8, 64), [1, 33, 100, 512, 513, 530, 777, 1024]),
+                               ((3, 300, 24, 8, 64), [0, 300, 17]),
+                               ((8, 1024, 16, 16, 128), [1, 33, 100, 512, 513, 530, 777, 1024]),
+                               ((3, 300, 16, 16, 128), [0, 300, 17])]:
             q, ck, cv, lens = _decode_inputs(*shape, dtype, sum(shape), lengths)
             live = lens > 0
             want = decode_plain(q[live], ck[live], cv[live], lens[live])
@@ -585,12 +616,104 @@ def _rel(got, want) -> float:
     return max_err(got, want) / float(want.abs().max())
 
 
-def _check_rel(what: str, got, want) -> float:
-    """_rel(got, want), which must stay within PARITY_REL_TOL."""
+def _check_rel(what: str, got, want, held=None) -> float:
+    """_rel(got, want), which must stay within PARITY_REL_TOL.  With ``held``,
+    a bool mask over the leading (B, S) dims, only the tokens it holds count
+    (still relative to max |want| over all)."""
     rel = _rel(got, want)
+    if held is not None:
+        rel = max_err(got[held], want[held]) / float(want.abs().max()) if bool(held.any()) else 0.0
     if rel > PARITY_REL_TOL:
         raise AssertionError(f"{what}: max_abs_err / max |want| = {rel:.3e} > {PARITY_REL_TOL}")
     return rel
+
+
+@contextlib.contextmanager
+def routing_log():
+    """Every MoE router call while it is open, recorded in order: its input
+    (the normed stream after attention), its probs and its top-k experts.
+    The router is restored on exit."""
+    from repro_torch.models import moe as MOE
+
+    calls, router = [], MOE._router
+
+    def recording(p, x, cfg):
+        probs, gates, idx = router(p, x, cfg)
+        calls.append({"x": x, "probs": probs, "idx": idx})
+        return probs, gates, idx
+
+    MOE._router = recording
+    try:
+        yield calls
+    finally:
+        MOE._router = router
+
+
+def new_tally() -> dict:
+    return {"tokens": 0, "flips": 0, "queue": 0, "max_gap": 0.0, "pairs": 0, "dropped": 0}
+
+
+def _expert_sets(call: dict, cfg) -> tuple:
+    """(chosen, kept) of one router call: (B,S,E) masks of each token's top-k
+    experts and of those its group's capacity kept."""
+    import torch
+
+    from repro_torch.models import moe as MOE
+
+    idx, m = call["idx"], cfg.moe
+    _, keep = MOE.queue_slots(idx, MOE.capacity(idx.shape[1], m), m.e_pad)
+    none = torch.zeros(*idx.shape[:2], m.e_pad, dtype=torch.bool, device=idx.device)
+    return none.scatter(2, idx, True), none.scatter(2, idx, keep)
+
+
+def routing_diff(what: str, kern: dict, plain: dict, cfg, tally: dict):
+    """(B,S) mask of the tokens whose routing differs between a kernel route's
+    router call and the plain route's on the same input.  A token that took
+    another set of experts (a flip) must be a near-tie on the plain route:
+    its log-prob gap between the k-th and (k+1)-th expert (the logit gap) at
+    most FLIP_GAP.  A token with the same
+    experts but another kept set (the capacity queue moved behind a flip)
+    must share its group (batch row) with a flip.  ``tally`` counts them,
+    and the plain route's (token, choice) pairs and dropped pairs."""
+    import torch
+
+    (ck, kk), (cp, kp) = _expert_sets(kern, cfg), _expert_sets(plain, cfg)
+    flip = (ck != cp).any(-1)
+    queue = (kk != kp).any(-1) & ~flip
+    logp = plain["probs"].log().sort(-1, descending=True).values
+    k = cfg.moe.top_k
+    gap = logp[..., k - 1] - logp[..., k]
+    if bool((gap[flip] > FLIP_GAP).any()):
+        raise AssertionError(f"{what}: a token took other experts where the plain route's "
+                             f"k-th choice leads by {float(gap[flip].max()):.3e} > {FLIP_GAP}")
+    if bool((queue & ~flip.any(1, keepdim=True)).any()):
+        raise AssertionError(f"{what}: a token's kept experts moved with no flip in its group")
+    tally["tokens"] += flip.numel()
+    tally["flips"] += int(flip.sum())
+    tally["queue"] += int(queue.sum())
+    tally["pairs"] += int(cp.sum())
+    tally["dropped"] += int((cp & ~kp).sum())
+    if bool(flip.any()):
+        tally["max_gap"] = max(tally["max_gap"], float(gap[flip].max()))
+    return flip | queue
+
+
+def held_tokens(what: str, kern: list, plain: list, cfg, tally: dict):
+    """For router calls on the same input (the same stream and cache on both
+    routes): every token's MoE input within PARITY_REL_TOL, then the (B,S)
+    mask of the tokens whose routing agrees in every call (``routing_diff``).
+    None where no MoE ran (the other families)."""
+    held = None
+    for ck, cp in zip(kern, plain, strict=True):
+        _check_rel(f"{what}, MoE input", ck["x"], cp["x"])
+        agree = ~routing_diff(what, ck, cp, cfg, tally)
+        held = agree if held is None else held & agree
+    return held
+
+
+def _last(held):
+    """The last token's entry of a (B,S) mask (the logits are the last token's)."""
+    return None if held is None else held[:, -1:]
 
 
 def _nudged(params: dict) -> dict:
@@ -700,26 +823,38 @@ def phase_parity(arch: str, depth=None) -> None:
             raise AssertionError(f"{name} route launches {ops.launches()}, want {want}")
         return got
 
+    # moe: the routing differences of each kernel route from the plain route
+    # on the same input (a, b)
+    tally = {name: new_tally() for name in kernel}
+
     with torch.no_grad():
-        # a. layer by layer on the same input, prefill then decode
+        # a. layer by layer on the same input, prefill then decode; for moe,
+        # each token's MoE input is held for every token, the layer output
+        # for the tokens whose routing agrees
         x, pos, _ = TF._embed_inputs(params, cfg, {"tokens": prompt})
         embed_rms = float(x.square().mean().sqrt())
         cache = DEC.init_cache(cfg, b, max_len, device="cuda")
         worst = dict.fromkeys(kernel, 0.0)
         for li in range(n):
             p = TF.layer_params(params["blocks"], li)
-            xk = {name: TF._apply_block(p, x, pos, c)[0] for name, c in kernel.items()}
-            with plain_scans():
-                x, (k, v), state = TF._apply_block(p, x, pos, cx)
+            xk, calls, held = {}, {}, {}
+            for name, c in kernel.items():
+                with routing_log() as calls[name]:
+                    xk[name] = TF._apply_block(p, x, pos, c)[0]
+            with plain_scans(), routing_log() as plain_calls:
+                x, (k, v), state, _ = TF._apply_block(p, x, pos, cx)
             for name in kernel:
-                worst[name] = max(worst[name], _check_rel(f"{name} prefill layer {li}", xk[name], x))
+                what = f"{name} prefill layer {li}"
+                held[name] = held_tokens(what, calls[name], plain_calls, cfg, tally[name])
+                worst[name] = max(worst[name], _check_rel(what, xk[name], x, held[name]))
             cache["k"][li, :, :s], cache["v"][li, :, :s] = k, v
             for key, t in state.items():
                 cache[key][li] = t
             if li == 0:
                 layer0_rms = float(x.square().mean().sqrt())
         for name in kernel:
-            rel = _check_rel(f"{name} prefill logits", logits_of(xk[name]), logits_of(x))
+            rel = _check_rel(f"{name} prefill logits", logits_of(xk[name]), logits_of(x),
+                             _last(held[name]))
             log("parity", f"a. {name} prefill, same input: worst layer output err / max |x| "
                 f"{worst[name]:.3e}; logits err / max |logit| {rel:.3e} (tol {PARITY_REL_TOL}) ok")
         log("parity", f"rms of the embedded input {embed_rms:.2f}, of the stream after layer 0 "
@@ -737,23 +872,28 @@ def phase_parity(arch: str, depth=None) -> None:
                 layer = {key: t[li] for key, t in cache.items() if key != "pos"}
                 # each writes the same new K/V (computed before attention)
                 # into the slot; the recurrent state is only read
-                xk = {name: DEC._decode_block(p, x, layer, pos, c)[0] for name, c in kernel.items()}
+                xk, calls = {}, {}
+                for name, c in kernel.items():
+                    with routing_log() as calls[name]:
+                        xk[name] = DEC._decode_block(p, x, layer, pos, c)[0]
                 if i == 0:
                     xn = L.apply_norm(p["ln_attn"], x, cfg.norm)
                     attn = L.attn_decode(p["attn"], xn, layer["k"], layer["v"], pos, cx)[0]
                     attn_err = {name: max_err(L.attn_decode(p["attn"], xn, layer["k"], layer["v"],
                                                             pos, c)[0], attn)
                                 for name, c in kernel.items()}
-                x, state = DEC._decode_block(p, x, layer, pos, cx)
+                with routing_log() as plain_calls:
+                    x, state = DEC._decode_block(p, x, layer, pos, cx)
                 for name in kernel:
-                    worst[name] = max(worst[name], _check_rel(f"{name} decode {i + 1} layer {li}",
-                                                              xk[name], x))
+                    what = f"{name} decode {i + 1} layer {li}"
+                    held[name] = held_tokens(what, calls[name], plain_calls, cfg, tally[name])
+                    worst[name] = max(worst[name], _check_rel(what, xk[name], x, held[name]))
                     if i == 0:
                         split[name] = max(split[name], (attn_err[name] / float(x.abs().max()), li))
                 for key, t in state.items():
                     cache[key][li] = t
             rels = {name: _check_rel(f"{name} decode {i + 1} logits", logits_of(xk[name]),
-                                     logits_of(x)) for name in kernel}
+                                     logits_of(x), held[name]) for name in kernel}
             log("parity", f"a. decode {i + 1}, same input: " + "; ".join(
                 f"{name} worst layer err / max |x| {worst[name]:.3e}, logits {rels[name]:.3e}"
                 for name in kernel) + f" (tol {PARITY_REL_TOL}) ok")
@@ -790,16 +930,25 @@ def phase_parity(arch: str, depth=None) -> None:
                 + f"; within {CHAOS_FACTOR} x the control at every depth, ok")
         del xs
 
-        # b. the entry points with the model cut to PARITY_DEPTH layers
+        # b. the entry points with the model cut to PARITY_DEPTH layers.  moe:
+        # at depth 1 a token's routing reaches its own output only (the cache
+        # holds layer 0's K/V, made before its MoE), so an output is held
+        # where its token's routing agrees
         m = PARITY_DEPTH
         cut = {**params, "blocks": tree_map(lambda t: t[:m], params["blocks"])}
-        got = {name: run_entry_points(name, dataclasses.replace(c, n_layers=m), cut)
-               for name, c in (*kernel.items(), ("plain", cx))}
+        got, calls = {}, {}
+        for name, c in (*kernel.items(), ("plain", cx)):
+            with routing_log() as calls[name]:
+                got[name] = run_entry_points(name, dataclasses.replace(c, n_layers=m), cut)
         for name in kernel:
+            rels = []
             for i, (o, w) in enumerate(zip(got[name], got["plain"])):
-                _check_rel(f"{name} entry points at depth {m}, output {i}", o, w)
+                what = f"{name} entry points at depth {m}, output {i}"
+                held = held_tokens(what, calls[name][i * m:(i + 1) * m],
+                                   calls["plain"][i * m:(i + 1) * m], cfg, tally[name])
+                rels.append(_check_rel(what, o, w, _last(held)))
             log("parity", f"b. {name} entry points at depth {m}: prefill + {n_dec} decode steps, "
-                f"logits err / max |logit| {drift(got[name], got['plain']):.3e} (tol "
+                f"logits err / max |logit| {max(rels):.3e} (tol "
                 f"{PARITY_REL_TOL}) ok; launches "
                 f"{expected_launches(dataclasses.replace(kernel[name], n_layers=m), 1, n_dec)}")
 
@@ -816,6 +965,14 @@ def phase_parity(arch: str, depth=None) -> None:
                 f"route (max err / max |logit|; prefill max |logit| {top:.1f}): kernel route "
                 f"{dk:.3e}, control (plain route, input nudged one f32 step) {dc:.3e}; within "
                 f"{CHAOS_FACTOR} x the control, ok")
+    if cfg.family == "moe":
+        for name, t in tally.items():
+            log("parity", f"routing, {name} route on the plain route's input (a, b): {t['flips']} "
+                f"of {t['tokens']} token-layers took another expert set, each a near-tie (plain-"
+                f"route logit gap <= {FLIP_GAP}; largest {t['max_gap']:.3e}); {t['queue']} kept "
+                "another set of the same experts (the capacity queue behind a flip); those "
+                f"tokens' outputs not held, every token's MoE input held to {PARITY_REL_TOL}; the "
+                f"plain route dropped {t['dropped']} of {t['pairs']} (token, choice) pairs")
     del params, nudged, routes, cut, got
     torch.cuda.empty_cache()
 
@@ -980,6 +1137,9 @@ def phase_timing(worst: dict, serves: dict, fresh: dict) -> list:
     rows.append(decode_row(8, 1024, 528, 32, 32, 96, "phi3-mini-3.8b"))
     rows.append(flash_row(1, 512, 96, 8, 192, "nemotron-4-340b"))
     rows.append(decode_row(8, 1024, 528, 96, 8, 192, "nemotron-4-340b"))
+    # granite-moe's serve shapes (24/8, D=64)
+    rows.append(flash_row(1, 512, 24, 8, 64, "granite-moe-3b-a800m"))
+    rows.append(decode_row(8, 1024, 528, 24, 8, 64, "granite-moe-3b-a800m"))
 
     # the fixed cost of a call, beside the serve shapes: K1 with one 64-row
     # tile per head, K2 with one valid slot a row, and a one-element fill
@@ -1072,10 +1232,13 @@ def phase_timing(worst: dict, serves: dict, fresh: dict) -> list:
     return list(out.values())
 
 
-def _profile(what: str, fn) -> tuple:
+def _profile(what: str, fn, ranges: tuple = ()) -> tuple:
     """Wall time, device busy time and the top device ops of one fn().  A
     profiling session that saw no device time is repeated (fn runs again),
-    up to three sessions in all.  Returns (busy ms, wall ms)."""
+    up to three sessions in all.  ``ranges`` names ``record_function``
+    ranges open during fn (see ``moe_ranges``): each one's device time, the
+    kernels launched inside it, is logged with its share of busy.  Returns
+    (busy ms, wall ms, {range: device ms, None where not measured})."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1087,7 +1250,9 @@ def _profile(what: str, fn) -> tuple:
             fn()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+        # a range also shows on the device's timeline as an annotation: not an op
+        events = [e for e in prof.key_averages()
+                  if e.device_type.name == "CUDA" and e.key not in ranges]
         busy_us = sum(e.self_device_time_total for e in events)
         if busy_us > 0:
             break
@@ -1105,12 +1270,94 @@ def _profile(what: str, fn) -> tuple:
             log("breakdown", f"  {e.self_device_time_total / 1e3:.3f} ms "
                 f"({100 * e.self_device_time_total / busy_us:.1f}% of busy, rank {i + 1}) "
                 f"x{e.count} {e.key[:90]}")
-    return busy_us / 1e3, wall * 1e3
+    spans = {e.key: e for e in prof.key_averages()
+             if e.key in ranges and e.device_type.name == "CPU"}
+    range_ms = {}
+    for name in ranges:
+        e = spans.get(name)
+        range_ms[name] = None
+        if e is None or e.device_time_total <= 0:
+            log("breakdown", f"  range {name}: device time not measured (no kernels attributed)")
+            continue
+        range_ms[name] = e.device_time_total / 1e3
+        log("breakdown", f"  range {name}: {e.device_time_total / 1e3:.3f} ms of kernels "
+            f"({100 * e.device_time_total / busy_us:.1f}% of busy) in {e.count} calls")
+    return busy_us / 1e3, wall * 1e3, range_ms
+
+
+# the moe layer's functions timed as ranges in phase 7: the whole layer, and
+# inside it the router (f32 logits, softmax, top-k) and the expert FFNs; the
+# rest of the layer is the capacity dispatch and the combine
+MOE_RANGES = {"apply_moe": "moe layer", "_router": "moe router", "_expert_ffn": "moe expert FFNs"}
+
+
+@contextlib.contextmanager
+def moe_ranges():
+    """``repro_torch.models.moe``'s functions of MOE_RANGES, each run inside a
+    ``record_function`` range of its label; restored on exit."""
+    from torch.profiler import record_function
+
+    from repro_torch.models import moe as MOE
+
+    saved = {fn: getattr(MOE, fn) for fn in MOE_RANGES}
+
+    def ranged(fn, label):
+        def call(*args):
+            with record_function(label):
+                return fn(*args)
+        return call
+
+    for fn, label in MOE_RANGES.items():
+        setattr(MOE, fn, ranged(saved[fn], label))
+    try:
+        yield tuple(MOE_RANGES.values())
+    finally:
+        for fn, f in saved.items():
+            setattr(MOE, fn, f)
+
+
+def moe_serve_bounds(cfg, defs, prompt: int, slots: int, length: int) -> dict:
+    """Least device time (ms) of a moe model's prefill of one ``prompt``
+    and of a decode tick of ``slots`` rows at valid length ``length``: the
+    larger of bytes over HBM_BYTES_PER_S and FLOPs over BF16_FLOPS.  Bytes:
+    every weight read once (not the embedding table, of which a step reads
+    a few rows), the K/V written (prefill) or read (decode).  FLOPs: the
+    attention projections, q.k and p.v, the expert FFNs on every slot of the
+    capacity dispatch (each expert runs all its slots, filled or not), the
+    shared experts, the router, and the unembedding of the tokens whose
+    logits the step returns."""
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.layers import adtype
+    from repro_torch.models.params import param_bytes
+
+    m, d, n = cfg.moe, cfg.d_model, cfg.n_layers
+    item = adtype(cfg).itemsize
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    mats = 3 if cfg.activation in ("swiglu", "geglu") else 2
+    row_ffn = 2 * mats * d * m.d_ff_expert  # FLOPs of one expert on one row
+    kv = 2 * item * n * hkv * hd  # K and V of one position, every layer
+
+    def bound(rows, expert_slots, pairs, out_rows, kv_bytes):
+        flops = n * (2 * rows * d * (2 * hq + 2 * hkv) * hd + 4 * hq * hd * pairs
+                     + row_ffn * (m.e_pad * expert_slots + m.n_shared_experts * rows)
+                     + 2 * rows * d * m.n_experts) + 2 * out_rows * d * cfg.vocab
+        nbytes = param_bytes(defs) - cfg.vocab * d * item + kv_bytes
+        t_b, t_f = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+        return {"bytes": nbytes, "flops": flops, "bytes_ms": t_b, "flops_ms": t_f,
+                "ms": max(t_b, t_f), "by": "bytes" if t_b >= t_f else "operations"}
+
+    return {"prefill": bound(prompt, MOE.capacity(prompt, m), prompt * (prompt + 1) / 2, 1,
+                             kv * prompt),
+            "decode": bound(slots, slots * MOE.capacity(1, m), slots * length, slots,
+                            kv * slots * length),
+            "expert_bytes": n * m.e_pad * mats * d * m.d_ff_expert * item}
 
 
 def phase_breakdown(arch: str) -> None:
     """One prefill and one full decode tick of the bf16 serve engine, with the
-    device's busy time from the profiler against the host's wall time."""
+    device's busy time from the profiler against the host's wall time.  For
+    the moe family, also the device time of its MoE layers, router and
+    expert FFNs (``moe_ranges``), and each step's bound (``moe_serve_bounds``)."""
     import torch
 
     from repro_torch.configs import get_config
@@ -1118,8 +1365,9 @@ def phase_breakdown(arch: str) -> None:
     from repro_torch.serving import ServingEngine
     from repro_torch.steps import init_model
 
+    t0 = time.perf_counter()
     cfg = get_config(arch, attention_impl="pallas")
-    _, params = init_model(cfg, seed=0, max_seq=1024, device="cuda")
+    defs, params = init_model(cfg, seed=0, max_seq=1024, device="cuda")
     eng = ServingEngine(cfg, params, max_batch=8, max_len=1024, prefill_len=512, device="cuda")
     g = torch.Generator().manual_seed(0)
     for _ in range(8):
@@ -1127,13 +1375,32 @@ def phase_breakdown(arch: str) -> None:
     eng.step()  # admit all 8 + first tick, warms everything up
     for _ in range(2):
         eng.step()
-    with torch.no_grad():
+    moe = cfg.family == "moe"
+    with torch.no_grad(), (moe_ranges() if moe else contextlib.nullcontext(())) as ranges:
         toks = torch.randint(1, cfg.vocab, (1, 512), generator=g).to("cuda")
-        _profile(f"{arch} prefill (1 x 512 tokens)",
-                 lambda: DEC.prefill(params, cfg, {"tokens": toks}, max_len=1024))
-        _profile(f"{arch} decode tick (8 slots)", eng.step)
+        prof = {"prefill": _profile(f"{arch} prefill (1 x 512 tokens)",
+                                    lambda: DEC.prefill(params, cfg, {"tokens": toks},
+                                                        max_len=1024), ranges),
+                "decode": _profile(f"{arch} decode tick (8 slots)", eng.step, ranges)}
+    busy = {step: p[0] for step, p in prof.items()}
+    if moe:  # the slots' valid length in the profiled tick: 515 (prompts of 512, 3 ticks)
+        length = int(eng.cache["pos"].float().mean())
+        bounds = moe_serve_bounds(cfg, defs, 512, 8, length)
+        for step, bd in ((k, bounds[k]) for k in ("prefill", "decode")):
+            spans = prof[step][2]
+            if None not in spans.values():
+                rest = spans["moe layer"] - spans["moe router"] - spans["moe expert FFNs"]
+                log("breakdown", f"{arch} {step}: MoE dispatch and combine (the layer but its "
+                    f"router and expert FFNs) {rest:.3f} ms, "
+                    f"{100 * rest / busy[step]:.1f}% of busy")
+            log("breakdown", f"{arch} {step} bound {bd['ms']:.3f} ms ({bd['by']}: "
+                f"{bd['bytes'] / 1e9:.3f} GB = {bd['bytes_ms']:.3f} ms, {bd['flops'] / 1e12:.4f} "
+                f"TFLOP = {bd['flops_ms']:.3f} ms; the expert weights alone "
+                f"{bounds['expert_bytes'] / 1e9:.3f} GB); device busy / bound "
+                f"{busy[step] / bd['ms']:.2f}")
     del eng, params
     torch.cuda.empty_cache()
+    log("breakdown", f"{arch} took {time.perf_counter() - t0:.1f}s")
 
 
 def train_full() -> dict:
@@ -1336,8 +1603,8 @@ def train_breakdown() -> dict:
              SyntheticDataset(DataConfig(cfg.vocab, s, b, seed=0)).batch(0).items()}
     step = make_train_step(cfg, remat=False)
     step(params, opt, batch)  # warm-up; the params now require grad
-    busy_ms, wall_ms = _profile(f"{arch} train step (B={b} S={s})",
-                                lambda: step(params, opt, batch))
+    busy_ms, wall_ms, _ = _profile(f"{arch} train step (B={b} S={s})",
+                                   lambda: step(params, opt, batch))
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
     ev[0].record()
     total, _ = forward_train(params, cfg, batch, remat=False)
@@ -1419,12 +1686,22 @@ def main() -> int:
 
     phase_build()
     fresh = phase_fresh()
+    t0 = time.perf_counter()
     worst = phase_kernels()
+    log("kernels", f"phase took {time.perf_counter() - t0:.1f}s")
     for arch, depth in PARITY_RUNS:
+        t0 = time.perf_counter()
         phase_parity(arch, depth)
-    serves = {label: phase_serve(label, args) for label, args in SERVE_RUNS}
+        log("parity", f"{arch} took {time.perf_counter() - t0:.1f}s")
+    serves = {}
+    for label, args in SERVE_RUNS:
+        t0 = time.perf_counter()
+        serves[label] = phase_serve(label, args)
+        log("serve", f"{label} took {time.perf_counter() - t0:.1f}s with init")
+    t0 = time.perf_counter()
     kernels = phase_timing(worst, serves, fresh)
-    for arch in ("gemma-2b", "hymba-1.5b"):
+    log("timing", f"phase took {time.perf_counter() - t0:.1f}s")
+    for arch in ("gemma-2b", "hymba-1.5b", "granite-moe-3b-a800m"):
         phase_breakdown(arch)
     phase_train()
     log("done", f"all phases passed in {time.perf_counter() - t_start:.1f}s")

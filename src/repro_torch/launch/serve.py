@@ -6,6 +6,7 @@
       --requests 16 --max-batch 8 --prefill-len 512 --max-len 1024 --max-new 32
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --json
   PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b --device cpu --json
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-moe-3b-a800m --device cpu --json
 
 Port of ``repro.launch.serve`` with four more flags: ``--device`` (default
 ``cuda``; without a card it raises unless ``--device cpu``), ``--full-width``

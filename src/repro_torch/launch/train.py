@@ -5,6 +5,8 @@ resume.
       --steps 50 --batch 4 --seq 64 --ckpt-dir /tmp/run1 --ckpt-every 10
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-2b \\
       --steps 4 --batch 4 --seq 512 --no-remat          # full width, on the card
+  PYTHONPATH=src python -m repro_torch.launch.train --arch granite-moe-3b-a800m \\
+      --smoke --device cpu --steps 2
 
 Port of ``repro.launch.train`` with two more flags: ``--device`` (default
 ``cuda``; without a card it raises unless ``--device cpu``) and ``--json``
@@ -14,10 +16,11 @@ Port of ``repro.launch.train`` with two more flags: ``--device`` (default
 rerun with the same ``--ckpt-dir`` resumes from its latest checkpoint.
 
 ``train`` holds the loop of the reference's ``jaxlocal.train_job`` and is
-what the CLI, the tests and ``chip_smoke.py`` call.  Only the dense family
-with ``attention_impl="xla"`` trains: the hybrid block and ``"pallas"``
-attention reach kernels with no backward, whose wrappers raise in step 0's
-forward, before any param changes (see ``kernels/ops.py``).
+what the CLI, the tests and ``chip_smoke.py`` call.  The dense and moe
+families train with ``attention_impl="xla"`` (the moe loss adds 0.01 x the
+load-balance aux): the hybrid block and ``"pallas"`` attention reach
+kernels with no backward, whose wrappers raise in step 0's forward, before
+any param changes (see ``kernels/ops.py``).
 """
 from __future__ import annotations
 

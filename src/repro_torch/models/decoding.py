@@ -1,10 +1,10 @@
-"""Prefill / single-token decode with KV + recurrent-state caches, dense and
-hybrid families.
+"""Prefill / single-token decode with KV + recurrent-state caches, dense,
+hybrid and moe families.
 
-Port of the dense and hybrid paths of ``repro.models.decoding``.  Cache
+Port of the dense, hybrid and moe paths of ``repro.models.decoding``.  Cache
 layouts (layer major, as in the reference):
-  dense  : {"k","v": (L,B,M,Hkv,Dh), "pos": (B,)}
-  hybrid : + {"conv": (L,B,k-1,di) activation dtype, "ssm": (L,B,di,n) f32}
+  dense, moe : {"k","v": (L,B,M,Hkv,Dh), "pos": (B,)}
+  hybrid     : + {"conv": (L,B,k-1,di) activation dtype, "ssm": (L,B,di,n) f32}
 
 Unlike the reference, ``decode_step`` writes the new K/V and recurrent states
 into the cache it is given, in place, and returns that cache with a new
@@ -20,7 +20,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as SSM
-from repro_torch.models.transformer import (_apply_block, _embed_inputs, check_family,
+from repro_torch.models.transformer import (_apply_block, _embed_inputs, _ffn, check_family,
                                             layer_params, mix)
 
 Params = Dict[str, Any]
@@ -51,7 +51,8 @@ def prefill(params: Params, cfg: ModelConfig, batch_inputs: Dict[str, torch.Tens
     cache = init_cache(cfg, b, max_len, device=x.device)
     m = max_len
     for li in range(cfg.n_layers):
-        x, (k, v), state = _apply_block(layer_params(params["blocks"], li), x, positions, cfg)
+        x, (k, v), state, _ = _apply_block(layer_params(params["blocks"], li), x, positions,
+                                           cfg)
         for key, t in state.items():  # the hybrid block's conv and ssm states
             cache[key][li] = t
         if s >= m:  # keep the last m positions
@@ -72,7 +73,8 @@ def _decode_block(p: Params, x: torch.Tensor, layer: Dict[str, torch.Tensor],
     """One decoder block for one new token.  ``layer`` is the layer's slice
     of the cache; its K/V are written in place (the same new row on every
     call), its recurrent state is only read.  Returns (x, new recurrent
-    state), the state empty for dense."""
+    state), the state empty for dense and moe.  The moe block routes the B
+    tokens as B groups of one (no drops); its aux is discarded."""
     xn = L.apply_norm(p["ln_attn"], x, cfg.norm)
     attn_out, _ = L.attn_decode(p["attn"], xn, layer["k"], layer["v"], pos, cfg)
     state: Dict[str, torch.Tensor] = {}
@@ -81,8 +83,8 @@ def _decode_block(p: Params, x: torch.Tensor, layer: Dict[str, torch.Tensor],
         x = mix(p, x, attn_out, ssm_out)
     else:
         x = x + attn_out
-    xn2 = L.apply_norm(p["ln_mlp"], x, cfg.norm)
-    return x + L.apply_mlp(p["mlp"], xn2, cfg.activation), state
+    ffn_out, _ = _ffn(p, L.apply_norm(p["ln_mlp"], x, cfg.norm), cfg)
+    return x + ffn_out, state
 
 
 def decode_step(params: Params, cfg: ModelConfig, cache: Dict[str, torch.Tensor],

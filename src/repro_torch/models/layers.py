@@ -9,7 +9,7 @@ cast back to the activation dtype, as in the reference.
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -184,8 +184,8 @@ def attn_decode(p: Params, x: torch.Tensor, cache_k: torch.Tensor, cache_v: torc
 # ---------------------------------------------------------------------------
 
 
-def mlp_defs(cfg) -> Params:
-    d, dff = cfg.d_model, cfg.d_ff
+def mlp_defs(cfg, d_ff: Optional[int] = None) -> Params:
+    d, dff = cfg.d_model, d_ff or cfg.d_ff
     dt = adtype(cfg)
     if cfg.activation in ("swiglu", "geglu"):
         return {

@@ -1,41 +1,44 @@
-"""Model assembly for the dense and hybrid decoder families.
+"""Model assembly for the dense, hybrid and moe decoder families.
 
-Port of the dense and hybrid parts of ``repro.models.transformer``:
+Port of the dense, hybrid and moe parts of ``repro.models.transformer``:
 
   dense   pre-norm attention + MLP blocks;
   hybrid  hymba: attention and a Mamba mixer run in parallel on the same
           normed input and are mixed with learned non-negative weights,
-          then an MLP.
+          then an MLP;
+  moe     attention + a mixture-of-experts FFN (``models/moe.py``), whose
+          load-balance loss each block returns as its aux.
 
 Per-layer params are stacked on a leading L dim; a Python loop over that dim
-replaces ``lax.scan``.  The other families (moe, ssm, encdec, vlm) are not
+replaces ``lax.scan``.  The other families (ssm, encdec, vlm) are not
 ported yet and raise ``NotImplementedError``.
 
-``forward_train`` trains the dense family with ``attention_impl="xla"``, as
-the reference's ``train_job`` does: no kernel has a backward (see
-``kernels/ops.py``), so the kernel routes (``"pallas"`` attention, and the
-hybrid block's scans) raise under grad.  With ``remat=True`` each block runs
-under ``torch.utils.checkpoint`` and is recomputed whole in the backward.
-The reference's policy (``dots_with_no_batch_dims_saveable``) keeps the
-matmul outputs and recomputes only the elementwise ops between them.  Both
-give the same numbers; the port saves only each block's input, so it holds
-less memory and does the block's matmuls once more.
+``forward_train`` trains with ``attention_impl="xla"``, as the reference's
+``train_job`` does: no kernel has a backward (see ``kernels/ops.py``), so
+the kernel routes (``"pallas"`` attention, and the hybrid block's scans)
+raise under grad.  With ``remat=True`` each block runs under
+``torch.utils.checkpoint`` and is recomputed whole in the backward.  The
+reference's policy (``dots_with_no_batch_dims_saveable``) keeps the matmul
+outputs and recomputes only the elementwise ops between them.  Both give
+the same numbers; the port saves only each block's input, so it holds less
+memory and does the block's matmuls once more.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models.params import ParamDef, tree_map
 
 Params = Dict[str, Any]
 
-PORTED_FAMILIES = ("dense", "hybrid")
+PORTED_FAMILIES = ("dense", "hybrid", "moe")
 
 
 def check_family(cfg: ModelConfig) -> None:
@@ -57,13 +60,16 @@ def block_defs(cfg: ModelConfig) -> Params:
         d["ssm"] = SSM.ssm_defs(cfg)
         d["mix_w"] = ParamDef((2,), (None,), init="ones", dtype=torch.float32)
     d["ln_mlp"] = L.norm_defs(cfg)
-    d["mlp"] = L.mlp_defs(cfg)
+    if cfg.family == "moe":
+        d["moe"] = MOE.moe_defs(cfg)
+    else:
+        d["mlp"] = L.mlp_defs(cfg)
     return d
 
 
 def model_defs(cfg: ModelConfig) -> Params:
     """Full parameter tree; the blocks are stacked on a leading L dim (the
-    dense and hybrid archs all use ``layer_impl="scan"``)."""
+    dense, hybrid and moe archs all use ``layer_impl="scan"``)."""
     check_family(cfg)
     if cfg.layer_impl != "scan":
         raise NotImplementedError(f"layer_impl={cfg.layer_impl!r}: the port stacks layers")
@@ -96,11 +102,22 @@ def mix(p: Params, x: torch.Tensor, attn_out: torch.Tensor, ssm_out: torch.Tenso
     return x + (w[0] * attn_out.float() + w[1] * ssm_out.float()).to(x.dtype)
 
 
+def _ffn(p: Params, xn2: torch.Tensor, cfg: ModelConfig
+         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The block's feed-forward on its normed input: (out, aux).  The moe
+    family's MoE layer returns its load-balance loss as ``aux``; the MLP of
+    the other families returns None."""
+    if cfg.family == "moe":
+        return MOE.apply_moe(p["moe"], xn2, cfg)
+    return L.apply_mlp(p["mlp"], xn2, cfg.activation), None
+
+
 def _apply_block(p: Params, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig
                  ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor],
-                            Dict[str, torch.Tensor]]:
-    """One decoder block.  Returns (x, (k, v), state): ``state`` is the
-    hybrid block's recurrent state {conv, ssm} and empty for dense."""
+                            Dict[str, torch.Tensor], Optional[torch.Tensor]]:
+    """One decoder block.  Returns (x, (k, v), state, aux): ``state`` is the
+    hybrid block's recurrent state {conv, ssm}, empty for the others; ``aux``
+    is the moe block's load-balance loss, None for the others (``_ffn``)."""
     xn = L.apply_norm(p["ln_attn"], x, cfg.norm)
     attn_out, (k, v) = L.attn_forward(p["attn"], xn, positions, cfg)
     state: Dict[str, torch.Tensor] = {}
@@ -109,9 +126,8 @@ def _apply_block(p: Params, x: torch.Tensor, positions: torch.Tensor, cfg: Model
         x = mix(p, x, attn_out, ssm_out)
     else:
         x = x + attn_out
-    xn2 = L.apply_norm(p["ln_mlp"], x, cfg.norm)
-    x = x + L.apply_mlp(p["mlp"], xn2, cfg.activation)
-    return x, (k, v), state
+    ffn_out, aux = _ffn(p, L.apply_norm(p["ln_mlp"], x, cfg.norm), cfg)
+    return x + ffn_out, (k, v), state, aux
 
 
 def _embed_inputs(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
@@ -144,18 +160,23 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor, mask: torch.Tenso
 def forward_train(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
                   remat: bool = True) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(total, {"loss", "aux"}) for a batch of {tokens, targets (B,S) int32,
-    mask (B,S) f32}; total = loss + 0.01 * aux, and aux is a zero f32 scalar
-    (it is the moe load-balance loss in the reference, and moe is not
-    ported)."""
+    mask (B,S) f32}; total = loss + 0.01 * aux, where aux is the sum over
+    the layers of the moe load-balance loss (an f32 zero for the dense and
+    hybrid families)."""
     x, positions, _ = _embed_inputs(params, cfg, batch)
 
-    def block(p: Params, h: torch.Tensor) -> torch.Tensor:
-        return _apply_block(p, h, positions, cfg)[0]
+    def block(p: Params, h: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        out = _apply_block(p, h, positions, cfg)
+        return out[0], out[3]
 
+    auxs = []
     for lp in unbind_layers(params["blocks"]):
-        x = checkpoint(block, lp, x, use_reentrant=False) if remat else block(lp, x)
+        x, aux = checkpoint(block, lp, x, use_reentrant=False) if remat else block(lp, x)
+        if aux is not None:
+            auxs.append(aux)
     x = L.apply_norm(params["ln_f"], x, cfg.norm)
     logits = L.unembed(params["embed"], x, cfg)
     loss = cross_entropy(logits, batch["targets"], batch["mask"])
-    aux = torch.zeros((), dtype=torch.float32, device=loss.device)
+    aux = (torch.stack(auxs).sum() if auxs
+           else torch.zeros((), dtype=torch.float32, device=loss.device))
     return loss + 0.01 * aux, {"loss": loss, "aux": aux}

@@ -1,6 +1,6 @@
 """Batched serving engine with continuous batching (slot refill).
 
-Port of ``repro.serving.engine`` for the dense and hybrid families.  A
+Port of ``repro.serving.engine`` for the dense, hybrid and moe families.  A
 fixed pool of ``max_batch`` decode slots shares one batched cache.  A free
 slot is filled by prefilling the request at batch 1 and copying its cache into
 the slot, in place, on the batch axis (axis 1 of ``k``/``v``/``conv``/``ssm``,
@@ -10,7 +10,10 @@ slots are refilled at once.
 Dense prompts are right-padded to ``prefill_len`` and masked through the
 cache's valid length (``pos``): admission rewinds ``pos`` to
 ``len(prompt) - 1``, so the first decode re-processes the last prompt token
-(an idempotent KV write) and yields the first new token.  Recurrent families
+(a KV write) and yields the first new token.  The moe family follows the
+dense rules, as in the reference: its first decode routes that token as a
+group of one, with no drops, so where the prefill dropped it the K/V
+rewritten at layers >= 1 differ from the prefill's.  Recurrent families
 (hybrid) fold pads into their state and re-processing a token is not
 idempotent, so their prompts must be exactly ``prefill_len`` long, the first
 token comes from the prefill logits, ``pos`` is not rewound, and a request

@@ -1,5 +1,6 @@
 """The port's model modules against the JAX package, module by module and for
-prefill + decode, on the gemma smoke config (2 layers, d=64) in f32.
+prefill + decode, on the gemma smoke config (2 layers, d=64) in f32, and
+prefill + decode of the moe family's smoke configs.
 
 Params are made by the JAX package and carried over with
 ``params_from_numpy``; other inputs are made with numpy from a seed.  The
@@ -24,6 +25,7 @@ from repro_torch.models import decoding as TDEC
 from repro_torch.models import layers as TL
 from repro_torch.models import params as TP
 from repro_torch.models import transformer as TTF
+from repro_torch.steps import init_model
 
 import _torch_threads  # noqa: F401  (one intra-op thread per test worker)
 
@@ -178,9 +180,17 @@ def _check_prefill_and_decode(jcfg, tcfg, jp, tp, seed):
         _close_cache(tc, jc)
 
 
-@pytest.mark.parametrize("jimpl,timpl", IMPLS)
-def test_prefill_and_decode_match_jax(jimpl, timpl):
-    _check_prefill_and_decode(*_model(jimpl=jimpl, timpl=timpl), seed=16)
+# gemma (dense), then the moe family: granite-moe (GQA, no shared expert) and
+# moonshot (MHA, a shared expert); the gemma ids are the test's older ones
+PREFILL_DECODE = [pytest.param(arch, jimpl, timpl, id=(f"{arch}-" if arch != "gemma-2b" else "")
+                               + f"{jimpl}-{timpl}")
+                  for arch in ("gemma-2b", "granite-moe-3b-a800m", "moonshot-v1-16b-a3b")
+                  for jimpl, timpl in IMPLS]
+
+
+@pytest.mark.parametrize("arch,jimpl,timpl", PREFILL_DECODE)
+def test_prefill_and_decode_match_jax(arch, jimpl, timpl):
+    _check_prefill_and_decode(*_model(arch, jimpl, timpl), seed=16)
 
 
 @pytest.mark.parametrize("jimpl,timpl", IMPLS)
@@ -241,9 +251,10 @@ def test_unported_families_raise(arch):
 
 
 def test_init_params_match_jax_structure():
-    """Dense (gemma) and hybrid (hymba, whose SSM leaves take the "scaled"
-    uniform init) smoke models."""
-    for arch in ("gemma-2b", "hymba-1.5b"):
+    """Dense (gemma), hybrid (hymba, whose SSM leaves take the "scaled"
+    uniform init) and moe (granite-moe: stacked experts, an f32 router)
+    smoke models."""
+    for arch in ("gemma-2b", "hymba-1.5b", "granite-moe-3b-a800m"):
         jcfg, tcfg = _cfgs(arch)
         jp = JP.init_params(jax.random.PRNGKey(0), JTF.model_defs(jcfg))
         defs = TTF.model_defs(tcfg)
@@ -289,3 +300,26 @@ def test_params_from_numpy_keeps_bf16_bits():
                                       np.asarray(jp[k]).view(np.uint16))
     assert TP.param_bytes(TL.attention_defs(TC.get_smoke_config(
         "gemma-2b", dtype="bfloat16"))) == JP.param_bytes(JL.attention_defs(jcfg))
+
+
+def test_moe_params_keep_an_f32_router_in_a_bf16_model():
+    """A bf16 moe model's router stays f32, whether drawn by ``init_model``
+    or carried from the JAX package's params (bits kept); the stacked experts
+    are (L, E, d, f) and each layer's are a view of its row."""
+    jcfg, tcfg = _cfgs("granite-moe-3b-a800m", dtype="bfloat16")
+    jp = JP.init_params(jax.random.PRNGKey(5), JTF.model_defs(jcfg))
+    carried = _carry(jp)
+    _, drawn = init_model(tcfg, seed=0, device="cpu")
+    m = tcfg.moe
+    for tp in (carried, drawn):
+        moe = tp["blocks"]["moe"]
+        assert moe["router"].dtype == torch.float32
+        assert {moe[k].dtype for k in ("w1", "w2", "w3")} == {torch.bfloat16}
+        assert tuple(moe["w1"].shape) == (tcfg.n_layers, m.e_pad, tcfg.d_model, m.d_ff_expert)
+        layer = TTF.layer_params(tp["blocks"], 1)["moe"]
+        assert layer["w2"].data_ptr() == moe["w2"][1].data_ptr()
+    np.testing.assert_array_equal(carried["blocks"]["moe"]["router"].numpy(),
+                                  np.asarray(jp["blocks"]["moe"]["router"]))
+    np.testing.assert_array_equal(
+        carried["blocks"]["moe"]["w1"].view(torch.int16).numpy().view(np.uint16),
+        np.asarray(jp["blocks"]["moe"]["w1"]).view(np.uint16))

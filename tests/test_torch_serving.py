@@ -26,10 +26,17 @@ import _torch_threads  # noqa: F401  (one intra-op thread per test worker)
 ROOT = Path(__file__).resolve().parents[1]
 
 
-@pytest.mark.parametrize("impl", ["xla", "pallas"])
-def test_engine_greedy_tokens_match_jax_engine(impl):
+# gemma (its ids are the test's older ones), then granite-moe: right-padded
+# prompts whose pads route through the experts too, and a first decode that
+# re-routes the last prompt token as a group of one
+ENGINE_CASES = [pytest.param(arch, impl, id=(f"{arch}-" if arch != "gemma-2b" else "") + impl)
+                for arch in ("gemma-2b", "granite-moe-3b-a800m") for impl in ("xla", "pallas")]
+
+
+@pytest.mark.parametrize("arch,impl", ENGINE_CASES)
+def test_engine_greedy_tokens_match_jax_engine(arch, impl):
     """Same carried f32 params, 5 requests through 2 slots (slots refill)."""
-    jcfg = j_smoke("gemma-2b")
+    jcfg = j_smoke(arch)
     jp = JP.init_params(jax.random.PRNGKey(0), JTF.model_defs(jcfg))
     tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), "cpu")
     rng = np.random.default_rng(20)
@@ -37,7 +44,7 @@ def test_engine_greedy_tokens_match_jax_engine(impl):
             for n, new in [(8, 5), (3, 4), (6, 7), (1, 3), (5, 6)]]
     kw = dict(max_batch=2, max_len=32, prefill_len=8)
     jeng = JEngine(jcfg, jp, **kw)
-    teng = ServingEngine(t_smoke("gemma-2b", attention_impl=impl), tp, device="cpu", **kw)
+    teng = ServingEngine(t_smoke(arch, attention_impl=impl), tp, device="cpu", **kw)
     for prompt, new in reqs:
         assert jeng.submit(prompt, max_new_tokens=new) == teng.submit(prompt, max_new_tokens=new)
     want = jeng.run_until_idle()
@@ -56,11 +63,19 @@ def test_serve_launcher_runs_on_the_cpu_when_asked(capsys):
     assert summary["device"] == "cpu" and summary["attention_impl"] == "pallas"
 
 
+def test_moe_serve_launcher_runs_on_the_cpu_when_asked(capsys):
+    summary = serve.main(["--arch", "granite-moe-3b-a800m", "--device", "cpu", "--requests",
+                          "3", "--max-batch", "2", "--max-new", "3", "--prefill-len", "8",
+                          "--max-len", "16", "--json"])
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == summary
+    assert summary["completed"] == 3 and summary["tokens"] == 9
+
+
 def test_entry_points_raise_without_a_card(monkeypatch):
     """The default device is the card; with no card they raise, never run on
     the CPU quietly."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for arch in ("gemma-2b", "hymba-1.5b"):
+    for arch in ("gemma-2b", "hymba-1.5b", "granite-moe-3b-a800m"):
         cfg = t_smoke(arch)
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             serve.main(["--arch", arch, "--requests", "1"])

@@ -174,15 +174,22 @@ def test_cross_entropy_matches_jax(mask):
         assert float(got) == 0.0
 
 
-@pytest.mark.parametrize("arch", ["gemma-2b", "phi3-mini-3.8b"])
+@pytest.mark.parametrize("arch", ["gemma-2b", "phi3-mini-3.8b", "granite-moe-3b-a800m",
+                                  "moonshot-v1-16b-a3b"])
 def test_forward_train_matches_jax(arch):
+    """total = loss + 0.01 aux; aux is the layers' summed moe load-balance
+    loss, and zero for the dense family."""
     jcfg, tcfg, jp, tp = _model(arch)
     batch = _batch(jcfg.vocab, seed=2)
     jtotal, jm = JTF.forward_train(jp, jcfg, _jb(batch), remat=False)
     ttotal, tm = TTF.forward_train(tp, tcfg, _tb(batch), remat=False)
     assert _rel(tm["loss"], jm["loss"]) <= 1e-5
     assert _rel(ttotal, jtotal) <= 1e-5
-    assert tm["aux"].dtype == torch.float32 and float(tm["aux"]) == float(jm["aux"]) == 0.0
+    assert tm["aux"].dtype == torch.float32 and tm["aux"].shape == ()
+    if tcfg.family == "moe":  # n_layers terms, each >= 1 (it is 1 when balanced)
+        assert float(jm["aux"]) >= tcfg.n_layers and _rel(tm["aux"], jm["aux"]) <= 1e-5
+    else:
+        assert float(tm["aux"]) == float(jm["aux"]) == 0.0
 
 
 # -- one AdamW step, and three -----------------------------------------------------
@@ -206,10 +213,16 @@ def _one_step(arch, dtype):
     return (jnew, jopt, jmet), (tnew, topt, tmet), f32
 
 
-@pytest.mark.parametrize("arch", ["gemma-2b", "phi3-mini-3.8b"])
+@pytest.mark.parametrize("arch", ["gemma-2b", "phi3-mini-3.8b", "granite-moe-3b-a800m"])
 def test_one_adamw_step_matches_jax(arch):
+    """For granite-moe the grads reach the router through the gates and the
+    aux loss, and the experts through the kept pairs only."""
     (jnew, jopt, jmet), (tnew, topt, tmet), _ = _one_step(arch, "float32")
     assert _rel(tmet["loss"], jmet["loss"]) <= 1e-5
+    if arch == "granite-moe-3b-a800m":
+        assert _rel(tmet["aux"], jmet["aux"]) <= 1e-5
+    else:
+        assert float(tmet["aux"]) == float(jmet["aux"]) == 0.0
     assert _rel(tmet["grad_norm"], jmet["grad_norm"]) <= 1e-5
     assert _rel(tmet["lr"], jmet["lr"]) <= 1e-6
     assert topt["step"].dtype == torch.int32 and int(topt["step"]) == int(jopt["step"]) == 1
@@ -531,6 +544,13 @@ def test_train_launcher_checkpoints_and_resumes(tmp_path, capsys):
     printed = json.loads(lines[-1])
     assert printed["start_step"] == second["start_step"] == 4
     assert printed["history"] == second["history"] and len(second["history"]) == 2
+
+
+def test_moe_train_launcher_runs_on_the_cpu():
+    out = TT.main(["--arch", "granite-moe-3b-a800m", "--smoke", "--device", "cpu",
+                   "--steps", "2", "--batch", "2", "--seq", "16"])
+    assert out["state"] == "done" and len(out["history"]) == 2
+    assert all(np.isfinite(out["history"]))
 
 
 def test_train_launcher_raises_without_a_card(monkeypatch):
