@@ -18,7 +18,9 @@ Phases, in order; any failure exits non-zero with its traceback:
                attention in f32 (tol 2e-5) and bf16 (tol 2e-2) at gemma's,
                hymba's, phi3-mini's (D=96) and nemotron-4's (D=192, G=12)
                head shapes, granite-moe's (24/8, D=64) and moonlight's
-               (16/16, D=128), ragged shapes, S = 1 and 65, every head
+               (16/16, D=128), phi-3-vision's prefill (S = 1088, 32/32,
+               D=96; cache 1152) and whisper's decoder (20/20, D=64; cache
+               448), ragged shapes, S = 1 and 65, every head
                dim and GQA; decode also with NaN past lengths, a row of
                length 0 (output 0), G = 16 and lengths below the number of
                splits; the scans (K3, K4) in f32 (tol 2e-5) at hymba's
@@ -27,8 +29,11 @@ Phases, in order; any failure exits non-zero with its traceback:
                projection), and with identity steps at the end, which must
                leave h_last as it was.
 4. parity    - gemma-2b, hymba-1.5b (both prefill scans), then phi3-mini-3.8b,
-               granite-moe-3b-a800m and moonshot-v1-16b-a3b with their
-               depth cut to 4 layers, at full width
+               granite-moe-3b-a800m, moonshot-v1-16b-a3b, phi-3-vision-4.2b
+               (576 stub image rows ahead of the prompt) and whisper-large-v3
+               (its encoder over 1500 stub frames, cut to 4 layers too, held
+               to the plain route's with no launch) with their depth cut to
+               4 layers, at full width
                in f32: prefill + 4 decode steps through the kernels
                (attention_impl="pallas") and through plain PyTorch ("xla",
                the scans through their plain versions): every layer and the
@@ -54,6 +59,17 @@ Phases, in order; any failure exits non-zero with its traceback:
                plain PyTorch), 16 requests; every
                request must complete and every prefill/decode must have gone
                through the kernels (counters set to 0 before each run).
+5b. decode   - the families the engine does not serve (vlm, encdec) through
+               ``init_model``, ``decoding.prefill`` and 32 greedy
+               ``decode_step``s at full width and depth in bf16, B = 8:
+               phi-3-vision-4.2b (576 stub image rows + 512 tokens, cache
+               1152) and whisper-large-v3 (1500 stub frames, 192-token
+               prompts, cache and position table 448): finite tokens for
+               every row, exactly n_layers K1 launches in the prefill and
+               n_layers K2 launches a step; prefill and step time, tokens/s,
+               peak memory, whisper's encoder's share of the prefill.  Then,
+               with the model loaded, phase 7's profiles of one prefill and
+               one step (and of whisper's encoder alone).
 6. timing    - each kernel at its serve shapes: its device time (profiler;
                each op at its mean over the records a session kept), the same
                from CUDA events around calls queued behind a sleep (a
@@ -64,7 +80,8 @@ Phases, in order; any failure exits non-zero with its traceback:
                calls), and the roofline bound (bytes, FLOPs and, for K3, its
                exps on the SFU at the card's max SM clock); each kernel's
                time over the library's and its bound over its time; K1 and
-               K2 also at phi3-mini's, nemotron-4's and granite-moe's heads.
+               K2 also at phi3-mini's, nemotron-4's and granite-moe's heads,
+               and at phase 5b's shapes (phi-3-vision, whisper).
 7. breakdown - profiles of the prefill (1 x 512 tokens) and the decode tick
                of gemma-2b, hymba-1.5b and granite-moe-3b-a800m in the bf16
                serve engine: the top six device ops and the port's kernels
@@ -141,9 +158,12 @@ SERVE_RUNS = [
 # depth.  phi3-mini's 32 layers are cut to 4: its K1 and K2 at D = 96 are
 # the point, and each layer adds seconds of plain f32 attention.  The moe
 # family at 4 layers: granite-moe (GQA 24/8, D = 64, 40 experts top-8) and
-# moonlight (MHA 16/16, D = 128, 64 experts top-6, 2 shared)
+# moonlight (MHA 16/16, D = 128, 64 experts top-6, 2 shared).  phi-3-vision
+# (576 stub image rows ahead of the tokens) and whisper (4 encoder layers
+# over 1500 stub frames, 4 decoder layers: K1 at 20/20, D = 64) at 4 layers
 PARITY_RUNS = [("gemma-2b", None), ("hymba-1.5b", None), ("phi3-mini-3.8b", 4),
-               ("granite-moe-3b-a800m", 4), ("moonshot-v1-16b-a3b", 4)]
+               ("granite-moe-3b-a800m", 4), ("moonshot-v1-16b-a3b", 4),
+               ("phi-3-vision-4.2b", 4), ("whisper-large-v3", 4)]
 # phase 8: (arch, batch, seq, steps) of the full-width run, (arch, layers,
 # batch, seq) of the card-against-CPU step, and its tolerances
 TRAIN_FULL = ("gemma-2b", 4, 512, 4)
@@ -151,6 +171,13 @@ TRAIN_PARITY = ("gemma-2b", 2, 1, 128)
 TRAIN_REL_TOL = 1e-5  # loss and grad norm, card against CPU
 TRAIN_LEAF_TOL = 2e-4  # moments and new params: of the leaf's max |x|
 RESUME_REL_TOL = 1e-6  # resumed losses against the uninterrupted run's
+# the decode phase (5b): (arch, batch, prompt tokens, cache max_len) of the
+# families the engine does not serve, each prefill + DECODE_STEPS greedy steps
+# at full width and depth in bf16.  phi-3-vision: 576 image rows + 512 tokens
+# (S = 1088); whisper: 1500 frames, 192-token prompts, max_len 448, its text
+# context (arXiv:2212.04356), which also sizes its decoder position table
+DECODE_RUNS = [("phi-3-vision-4.2b", 8, 512, 1152), ("whisper-large-v3", 8, 192, 448)]
+DECODE_STEPS = 32
 # the serve run whose counts stand in the kernels JSON as each kernel's launches
 MAIN_PATH = {"flash_attention": "gemma-2b", "decode_attention": "gemma-2b",
              "ssm_scan": "hymba-1.5b assoc", "ssm_scan_fused": "hymba-1.5b chunked"}
@@ -315,6 +342,36 @@ def plain_scans():
         yield
     finally:
         ops.ssm_scan, ops.ssm_scan_fused = saved
+
+
+@contextlib.contextmanager
+def exact_attention():
+    """The plain attention (``layers._plain_attention``) computed in f64 and
+    rounded once to its input's dtype: the plain route without rounding in
+    its attention, the yardstick that phase 4 logs beside encdec layers.
+    Restored on exit."""
+    import torch
+
+    from repro_torch.models import layers as L
+
+    plain = L._plain_attention
+
+    def exact(q, k, v, mask, cfg):
+        b, sq, hq, d = q.shape
+        hkv = k.shape[2]
+        qg = q.double().reshape(b, sq, hkv, hq // hkv, d)
+        scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.double()) / math.sqrt(d)
+        if mask is not None:
+            scores = scores.masked_fill(~mask, float("-inf"))
+        w = torch.softmax(scores, dim=-1)
+        out = torch.einsum("bhgqk,bkhd->bqhgd", w, v.double()).reshape(b, sq, hq, d)
+        return out.to(q.dtype)
+
+    L._plain_attention = exact
+    try:
+        yield
+    finally:
+        L._plain_attention = plain
 
 
 def phase_device():
@@ -546,7 +603,11 @@ def phase_kernels() -> dict:
                       (2, 77, 96, 8, 192),
                       # granite-moe's (24/8, G = 3, D = 64) and moonlight's (16/16, D = 128)
                       (1, 512, 24, 8, 64), (2, 77, 24, 8, 64), (1, 512, 16, 16, 128),
-                      (2, 77, 16, 16, 128)]:
+                      (2, 77, 16, 16, 128),
+                      # phi-3-vision's prefill (576 image rows + 512 tokens, 32/32,
+                      # D = 96) and whisper's decoder (20/20, D = 64, 192 tokens)
+                      (1, 1088, 32, 32, 96), (8, 1088, 32, 32, 96), (8, 192, 20, 20, 64),
+                      (2, 77, 20, 20, 64)]:
             q, k, v = _flash_inputs(*shape, dtype, seed=sum(shape))
             got = ops.flash_attention(q, k, v)
             torch.cuda.synchronize()
@@ -571,7 +632,11 @@ def phase_kernels() -> dict:
                                ((8, 1024, 24, 8, 64), [1, 33, 100, 512, 513, 530, 777, 1024]),
                                ((3, 300, 24, 8, 64), [0, 300, 17]),
                                ((8, 1024, 16, 16, 128), [1, 33, 100, 512, 513, 530, 777, 1024]),
-                               ((3, 300, 16, 16, 128), [0, 300, 17])]:
+                               ((3, 300, 16, 16, 128), [0, 300, 17]),
+                               # phi-3-vision's cache (1152) and whisper's (448)
+                               ((8, 1152, 32, 32, 96), [1, 100, 576, 1088, 1089, 1100, 1119, 1152]),
+                               ((8, 448, 20, 20, 64), [1, 17, 192, 193, 200, 223, 300, 448]),
+                               ((3, 448, 20, 20, 64), [0, 448, 9])]:
             q, ck, cv, lens = _decode_inputs(*shape, dtype, sum(shape), lengths)
             live = lens > 0
             want = decode_plain(q[live], ck[live], cv[live], lens[live])
@@ -616,6 +681,13 @@ def _rel(got, want) -> float:
     return max_err(got, want) / float(want.abs().max())
 
 
+def _hold(what: str, rel: float) -> float:
+    """rel, which must stay within PARITY_REL_TOL."""
+    if rel > PARITY_REL_TOL:
+        raise AssertionError(f"{what}: max_abs_err / max |want| = {rel:.3e} > {PARITY_REL_TOL}")
+    return rel
+
+
 def _check_rel(what: str, got, want, held=None) -> float:
     """_rel(got, want), which must stay within PARITY_REL_TOL.  With ``held``,
     a bool mask over the leading (B, S) dims, only the tokens it holds count
@@ -623,9 +695,7 @@ def _check_rel(what: str, got, want, held=None) -> float:
     rel = _rel(got, want)
     if held is not None:
         rel = max_err(got[held], want[held]) / float(want.abs().max()) if bool(held.any()) else 0.0
-    if rel > PARITY_REL_TOL:
-        raise AssertionError(f"{what}: max_abs_err / max |want| = {rel:.3e} > {PARITY_REL_TOL}")
-    return rel
+    return _hold(what, rel)
 
 
 @contextlib.contextmanager
@@ -728,11 +798,33 @@ def _nudged(params: dict) -> dict:
     return {**params, "blocks": blocks}
 
 
-def _entry_points(params: dict, cfg, prompt, steps, max_len: int) -> list:
-    """Logits of prefill and of each decode step, through the entry points."""
+def stub_inputs(cfg, tokens) -> dict:
+    """{"tokens": tokens} and, for vlm and encdec, the stub frontend's
+    embeddings (``with_frontend_stubs``, seed 0), on the tokens' device."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data import with_frontend_stubs
+
+    stubs = with_frontend_stubs({"tokens": np.zeros(tuple(tokens.shape), np.int32)}, cfg)
+    return {"tokens": tokens, **{k: torch.from_numpy(v).to(tokens.device)
+                                 for k, v in stubs.items() if k != "tokens"}}
+
+
+def _cut(params: dict, m: int) -> dict:
+    """params with the decoder (and encoder) stacks cut to their first m layers."""
+    from repro_torch.models.params import tree_map
+
+    return {**params, **{key: tree_map(lambda t: t[:m], params[key])
+                         for key in ("blocks", "enc_blocks") if key in params}}
+
+
+def _entry_points(params: dict, cfg, inputs: dict, steps, max_len: int) -> list:
+    """Logits of prefill (of ``inputs``: the tokens and the stub frontend's
+    embeddings) and of each decode step, through the entry points."""
     from repro_torch.models import decoding as DEC
 
-    out, cache = DEC.prefill(params, cfg, {"tokens": prompt}, max_len=max_len)
+    out, cache = DEC.prefill(params, cfg, inputs, max_len=max_len)
     got = [out]
     for tok in steps:
         out, cache = DEC.decode_step(params, cfg, cache, tok)
@@ -755,7 +847,9 @@ def phase_parity(arch: str, depth=None) -> None:
 
     a. layer by layer on the same input (the plain route's stream and cache),
        through every layer, at prefill and at each of 4 decode steps, down
-       to the logits, within PARITY_REL_TOL;
+       to the logits, within PARITY_REL_TOL; and each layer's attention
+       output alone (where K1 and K2 act) within PARITY_REL_TOL of the
+       layer output's max;
     b. end to end through the entry points prefill/decode_step, with the
        model cut to PARITY_DEPTH layers, within PARITY_REL_TOL;
     c. end to end through the entry points at full depth, beside a control:
@@ -765,6 +859,20 @@ def phase_parity(arch: str, depth=None) -> None:
     Between a and b, each route and the control run on their own streams, and
     the prefill logits after every depth are held to the rule of c, so the
     run shows where the chaos sets in.
+
+    vlm prompts are the 576 stub image rows and then the tokens; encdec
+    runs its encoder over the 1500 stub frames first.  The encoder takes
+    no kernel on any route: each route's encoder output is held to the
+    plain route's, with no launch; "layers" and "depth" are the decoder's
+    (b cuts the encoder too).  An encdec decoder layer runs its
+    cross-attention after the kernel's self-attention, and that
+    cross-attention (scores in the hundreds, near-ties) amplifies an f32
+    rounding of its input 10-20x within the layer: an f64 self-attention
+    moves the plain route's layer output by more than PARITY_REL_TOL.  So
+    in a. its layers are held at their attention output alone; the whole
+    layer and the logits are logged beside that of the plain route with
+    exact (f64) attention (``exact_attention``); in b its entry points are
+    held to the rule of c, beside the same yardstick.
     """
     import dataclasses
 
@@ -775,29 +883,34 @@ def phase_parity(arch: str, depth=None) -> None:
     from repro_torch.models import decoding as DEC
     from repro_torch.models import layers as L
     from repro_torch.models import transformer as TF
-    from repro_torch.models.params import count_params, tree_map
+    from repro_torch.models.params import count_params
     from repro_torch.steps import init_model
 
     cfg = get_config(arch, dtype="float32")
     cut = ""
     if depth is not None:
         cut = f" (depth cut from {cfg.n_layers} to {depth} layers)"
-        cfg = dataclasses.replace(cfg, n_layers=depth)
+        # encdec: the encoder too
+        cfg = dataclasses.replace(cfg, n_layers=depth, n_enc_layers=min(cfg.n_enc_layers, depth))
     cp = dataclasses.replace(cfg, attention_impl="pallas")
     cx = dataclasses.replace(cfg, attention_impl="xla")
     if cfg.family == "hybrid":
         kernel = {"kernel assoc": with_scan(cp, "assoc"), "kernel chunked": with_scan(cp, "chunked")}
     else:
         kernel = {"kernel": cp}
-    b, s, max_len, n_dec = 2, 128, 256, 4
+    # the cache holds the vlm's image rows too
+    b, s, max_len, n_dec = 2, 128, 256 + cfg.n_img_tokens, 4
     t0 = time.perf_counter()
     defs, params = init_model(cfg, seed=0, max_seq=max_len, device="cuda")
     torch.cuda.synchronize()
     log("parity", f"{arch} f32, {count_params(defs) / 1e9:.3f}B params, {cfg.n_layers} layers{cut}, "
-        f"init {time.perf_counter() - t0:.1f}s; prompt B={b} S={s}, {n_dec} decode steps; "
-        f"kernel routes {list(kernel)}")
+        f"init {time.perf_counter() - t0:.1f}s; prompt B={b} S={s}"
+        + (f" after {cfg.n_img_tokens} stub image rows" if cfg.family == "vlm" else "")
+        + (f" over {cfg.enc_frames} stub frames ({cfg.n_enc_layers} encoder layers)"
+           if cfg.family == "encdec" else "")
+        + f", {n_dec} decode steps; kernel routes {list(kernel)}")
     g = torch.Generator(device="cuda").manual_seed(1)
-    prompt = torch.randint(1, cfg.vocab, (b, s), generator=g, device="cuda")
+    inputs = stub_inputs(cfg, torch.randint(1, cfg.vocab, (b, s), generator=g, device="cuda"))
     steps = torch.randint(1, cfg.vocab, (n_dec, b, 1), generator=g, device="cuda")
     n = cfg.n_layers
     nudged = _nudged(params)
@@ -817,7 +930,7 @@ def phase_parity(arch: str, depth=None) -> None:
     def run_entry_points(name, c, prm):
         ops.reset_launches()
         with on(name):
-            got = _entry_points(prm, c, prompt, steps, max_len)
+            got = _entry_points(prm, c, inputs, steps, max_len)
         want = expected_launches(c, 1, n_dec)
         if ops.launches() != want:
             raise AssertionError(f"{name} route launches {ops.launches()}, want {want}")
@@ -828,93 +941,141 @@ def phase_parity(arch: str, depth=None) -> None:
     tally = {name: new_tally() for name in kernel}
 
     with torch.no_grad():
+        # encdec: each route's encoder output (no kernel on any route)
+        encs = {}
+        for name, (c, prm) in routes.items():
+            ops.reset_launches()
+            with on(name):
+                encs[name] = TF.encoder_output(prm, c, inputs)
+            if any(ops.launches().values()):
+                raise AssertionError(f"{name} route's encoder launched {ops.launches()}")
+        if cfg.family == "encdec":
+            for name in kernel:
+                rel = _check_rel(f"{name} encoder output", encs[name], encs["plain"])
+                log("parity", f"{name} encoder ({cfg.n_enc_layers} layers, bidirectional, plain "
+                    f"attention): output err / max |x| {rel:.3e}, no kernel launched; ok")
+        enc = encs["plain"]
         # a. layer by layer on the same input, prefill then decode; for moe,
         # each token's MoE input is held for every token, the layer output
         # for the tokens whose routing agrees
-        x, pos, _ = TF._embed_inputs(params, cfg, {"tokens": prompt})
+        x, pos, _ = TF._embed_inputs(params, cfg, inputs)
+        s_all = x.shape[1]  # the vlm's image rows and its tokens
         embed_rms = float(x.square().mean().sqrt())
         cache = DEC.init_cache(cfg, b, max_len, device="cuda")
+        sub = cfg.family == "encdec"  # whole layers logged, not held (see above)
         worst = dict.fromkeys(kernel, 0.0)
+        attn_worst = dict.fromkeys(kernel, 0.0)
         for li in range(n):
             p = TF.layer_params(params["blocks"], li)
-            xk, calls, held = {}, {}, {}
+            xn = L.apply_norm(p["ln_attn"], x, cfg.norm)
+            attn = L.attn_forward(p["attn"], xn, pos, cx)[0]
+            xk, calls, held, attn_err = {}, {}, {}, {}
             for name, c in kernel.items():
+                attn_err[name] = max_err(L.attn_forward(p["attn"], xn, pos, c)[0], attn)
                 with routing_log() as calls[name]:
-                    xk[name] = TF._apply_block(p, x, pos, c)[0]
+                    xk[name] = TF._apply_block(p, x, pos, c, enc)[0]
+            if sub:
+                with exact_attention():
+                    exact = TF._apply_block(p, x, pos, cx, enc)[0]
             with plain_scans(), routing_log() as plain_calls:
-                x, (k, v), state, _ = TF._apply_block(p, x, pos, cx)
+                x, (k, v), state, _ = TF._apply_block(p, x, pos, cx, enc)
             for name in kernel:
                 what = f"{name} prefill layer {li}"
+                attn_worst[name] = max(attn_worst[name], _hold(
+                    f"{what} attention output", attn_err[name] / float(x.abs().max())))
                 held[name] = held_tokens(what, calls[name], plain_calls, cfg, tally[name])
-                worst[name] = max(worst[name], _check_rel(what, xk[name], x, held[name]))
-            cache["k"][li, :, :s], cache["v"][li, :, :s] = k, v
+                if sub:
+                    worst[name] = max(worst[name], _rel(xk[name], x))
+                    worst["exact"] = max(worst.get("exact", 0.0), _rel(exact, x))
+                else:
+                    worst[name] = max(worst[name], _check_rel(what, xk[name], x, held[name]))
+            cache["k"][li, :, :s_all], cache["v"][li, :, :s_all] = k, v
             for key, t in state.items():
                 cache[key][li] = t
             if li == 0:
                 layer0_rms = float(x.square().mean().sqrt())
         for name in kernel:
+            if sub:
+                rel = _rel(logits_of(xk[name]), logits_of(x))
+                log("parity", f"a. {name} prefill, same input: worst attention output err / max "
+                    f"|x| {attn_worst[name]:.3e} (tol {PARITY_REL_TOL}) ok; logged: worst "
+                    f"layer output err / max |x| {worst[name]:.3e} (plain route with exact "
+                    f"attention {worst['exact']:.3e}), logits err / max |logit| {rel:.3e}")
+                continue
             rel = _check_rel(f"{name} prefill logits", logits_of(xk[name]), logits_of(x),
                              _last(held[name]))
             log("parity", f"a. {name} prefill, same input: worst layer output err / max |x| "
-                f"{worst[name]:.3e}; logits err / max |logit| {rel:.3e} (tol {PARITY_REL_TOL}) ok")
+                f"{worst[name]:.3e}; logits err / max |logit| {rel:.3e} (tol {PARITY_REL_TOL}); "
+                f"worst attention output err / max |x| {attn_worst[name]:.3e} ok")
         log("parity", f"rms of the embedded input {embed_rms:.2f}, of the stream after layer 0 "
             f"{layer0_rms:.2f}")
-        cache["pos"].fill_(s)
+        cache["pos"].fill_(s_all)
         for i in range(n_dec):
             x = L.embed_tokens(params["embed"], steps[i], cfg)
             pos = cache["pos"]
             worst = dict.fromkeys(kernel, 0.0)
-            # the first step also splits each layer: its attention sublayer
-            # alone (K2 and the output projection) on the same input
-            split = {name: (0.0, 0) for name in kernel}
+            # each layer's attention output alone (K2 and the output
+            # projection) on the same input, and the worst layer it was in
+            attn_worst = {name: (0.0, 0) for name in kernel}
             for li in range(n):
                 p = TF.layer_params(params["blocks"], li)
                 layer = {key: t[li] for key, t in cache.items() if key != "pos"}
                 # each writes the same new K/V (computed before attention)
                 # into the slot; the recurrent state is only read
-                xk, calls = {}, {}
+                xn = L.apply_norm(p["ln_attn"], x, cfg.norm)
+                attn = L.attn_decode(p["attn"], xn, layer["k"], layer["v"], pos, cx)[0]
+                xk, calls, attn_err = {}, {}, {}
                 for name, c in kernel.items():
+                    attn_err[name] = max_err(L.attn_decode(p["attn"], xn, layer["k"], layer["v"],
+                                                           pos, c)[0], attn)
                     with routing_log() as calls[name]:
                         xk[name] = DEC._decode_block(p, x, layer, pos, c)[0]
-                if i == 0:
-                    xn = L.apply_norm(p["ln_attn"], x, cfg.norm)
-                    attn = L.attn_decode(p["attn"], xn, layer["k"], layer["v"], pos, cx)[0]
-                    attn_err = {name: max_err(L.attn_decode(p["attn"], xn, layer["k"], layer["v"],
-                                                            pos, c)[0], attn)
-                                for name, c in kernel.items()}
+                if sub:
+                    with exact_attention():
+                        exact = DEC._decode_block(p, x, layer, pos, cx)[0]
                 with routing_log() as plain_calls:
                     x, state = DEC._decode_block(p, x, layer, pos, cx)
                 for name in kernel:
                     what = f"{name} decode {i + 1} layer {li}"
+                    attn_worst[name] = max(attn_worst[name], (_hold(
+                        f"{what} attention output", attn_err[name] / float(x.abs().max())), li))
                     held[name] = held_tokens(what, calls[name], plain_calls, cfg, tally[name])
-                    worst[name] = max(worst[name], _check_rel(what, xk[name], x, held[name]))
-                    if i == 0:
-                        split[name] = max(split[name], (attn_err[name] / float(x.abs().max()), li))
+                    if sub:
+                        worst[name] = max(worst[name], _rel(xk[name], x))
+                        worst["exact"] = max(worst.get("exact", 0.0), _rel(exact, x))
+                    else:
+                        worst[name] = max(worst[name], _check_rel(what, xk[name], x, held[name]))
                 for key, t in state.items():
                     cache[key][li] = t
-            rels = {name: _check_rel(f"{name} decode {i + 1} logits", logits_of(xk[name]),
-                                     logits_of(x), held[name]) for name in kernel}
-            log("parity", f"a. decode {i + 1}, same input: " + "; ".join(
-                f"{name} worst layer err / max |x| {worst[name]:.3e}, logits {rels[name]:.3e}"
-                for name in kernel) + f" (tol {PARITY_REL_TOL}) ok")
-            if i == 0:
-                log("parity", "a. decode 1, attention sublayer alone (K2 and the output "
-                    "projection, same input): " + "; ".join(
-                        f"{name} worst err / max |layer output| {split[name][0]:.3e} (layer "
-                        f"{split[name][1]})" for name in kernel)
-                    + "; the rest of the layer runs the same code on both routes")
+            if sub:
+                log("parity", f"a. decode {i + 1}, same input: " + "; ".join(
+                    f"{name} worst attention output err / max |x| "
+                    f"{attn_worst[name][0]:.3e} (layer {attn_worst[name][1]})"
+                    for name in kernel) + f" (tol {PARITY_REL_TOL}) ok; logged: " + "; ".join(
+                    f"{name} worst layer err / max |x| {worst[name]:.3e}, logits "
+                    f"{_rel(logits_of(xk[name]), logits_of(x)):.3e}" for name in kernel)
+                    + f"; the plain route with exact attention: worst layer err "
+                    f"{worst['exact']:.3e}, logits {_rel(logits_of(exact), logits_of(x)):.3e}")
+            else:
+                rels = {name: _check_rel(f"{name} decode {i + 1} logits", logits_of(xk[name]),
+                                         logits_of(x), held[name]) for name in kernel}
+                log("parity", f"a. decode {i + 1}, same input: " + "; ".join(
+                    f"{name} worst layer err / max |x| {worst[name]:.3e}, logits "
+                    f"{rels[name]:.3e}, worst attention output err / max |x| "
+                    f"{attn_worst[name][0]:.3e} (layer {attn_worst[name][1]})"
+                    for name in kernel) + f" (tol {PARITY_REL_TOL}) ok")
             cache["pos"] += 1
         del cache
 
         # each route on its own stream; the prefill logits after every depth
-        x0, pos, _ = TF._embed_inputs(params, cfg, {"tokens": prompt})
+        x0, pos, _ = TF._embed_inputs(params, cfg, inputs)
         xs = dict.fromkeys(routes, x0)
         curve = {name: [] for name in kernel}
         for li in range(n):
             for name, (c, prm) in routes.items():
                 with on(name):
                     xs[name] = TF._apply_block(TF.layer_params(prm["blocks"], li), xs[name],
-                                               pos, c)[0]
+                                               pos, c, encs[name])[0]
             want = logits_of(xs["plain"])
             dc = _rel(logits_of(xs["control"]), want)
             for name in kernel:
@@ -928,19 +1089,34 @@ def phase_parity(arch: str, depth=None) -> None:
                 "route / control: " + ", ".join(f"{i + 1}: {dk:.1e}/{dc:.1e}"
                                                  for i, (dk, dc) in enumerate(curve[name]))
                 + f"; within {CHAOS_FACTOR} x the control at every depth, ok")
-        del xs
+        del xs, encs, enc
 
         # b. the entry points with the model cut to PARITY_DEPTH layers.  moe:
         # at depth 1 a token's routing reaches its own output only (the cache
         # holds layer 0's K/V, made before its MoE), so an output is held
         # where its token's routing agrees
         m = PARITY_DEPTH
-        cut = {**params, "blocks": tree_map(lambda t: t[:m], params["blocks"])}
+        cut = _cut(params, m)
         got, calls = {}, {}
         for name, c in (*kernel.items(), ("plain", cx)):
             with routing_log() as calls[name]:
                 got[name] = run_entry_points(name, dataclasses.replace(c, n_layers=m), cut)
+        if sub:  # encdec: the rule of c at depth m, beside the exact-attention yardstick
+            cm = dataclasses.replace(cx, n_layers=m)
+            dc = drift(run_entry_points("control", cm, _cut(nudged, m)), got["plain"])
+            with exact_attention():
+                de = drift(run_entry_points("plain", cm, cut), got["plain"])
         for name in kernel:
+            if sub:
+                dk = drift(got[name], got["plain"])
+                if dk > max(CHAOS_FACTOR * dc, PARITY_REL_TOL):
+                    raise AssertionError(f"{name} entry points at depth {m}: drift {dk:.3e}, more "
+                                         f"than {CHAOS_FACTOR} x the control's {dc:.3e}")
+                log("parity", f"b. {name} entry points at depth {m}: prefill + {n_dec} decode "
+                    f"steps, logits drift from the plain route (max err / max |logit|) {dk:.3e}; "
+                    f"control (input nudged one f32 step) {dc:.3e}, within {CHAOS_FACTOR} x, "
+                    f"ok; the plain route with exact attention {de:.3e}")
+                continue
             rels = []
             for i, (o, w) in enumerate(zip(got[name], got["plain"])):
                 what = f"{name} entry points at depth {m}, output {i}"
@@ -1011,6 +1187,120 @@ def phase_serve(label: str, args: list) -> dict:
         "for decode_attention)")
     torch.cuda.empty_cache()
     return {"summary": summary, "launches": launches, "requests": n_req}
+
+
+def phase_decode(arch: str, b: int, prompt: int, max_len: int) -> dict:
+    """One main path of a family the engine does not serve (vlm, encdec):
+    ``init_model``, ``decoding.prefill`` of ``b`` prompts of ``prompt`` tokens
+    with the stub frontend's embeddings, then DECODE_STEPS greedy
+    ``decode_step``s, at full width and depth in bf16.  Counters set to 0
+    just before the prefill, read after it and after the steps: exactly
+    n_layers K1 launches a prefill and n_layers K2 launches a step (the
+    decoder's layers: whisper's encoder and cross-attention take none).
+    Then the breakdown of phase 7 for the model while it is loaded: one
+    prefill and one step profiled, and for encdec the encoder alone."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import decoding as DEC
+    from repro_torch.models import transformer as TF
+    from repro_torch.models.params import count_params
+    from repro_torch.steps import init_model
+
+    n_steps = DECODE_STEPS
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg = get_config(arch, attention_impl="pallas")
+    defs, params = init_model(cfg, seed=0, max_seq=max_len, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    inputs = stub_inputs(cfg, torch.randint(1, cfg.vocab, (b, prompt), generator=g, device="cuda"))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n = cfg.n_layers
+
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    logits, cache = DEC.prefill(params, cfg, inputs, max_len=max_len)
+    nxt = logits.argmax(-1)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    after_prefill = ops.launches()
+    finite = torch.isfinite(logits).all()
+    toks = []
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        logits, cache = DEC.decode_step(params, cfg, cache, nxt)
+        nxt = logits.argmax(-1)
+        finite &= torch.isfinite(logits).all()
+        toks.append(nxt)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3
+    launches = ops.launches()
+    toks = torch.cat(toks, dim=1)
+    want = expected_launches(cfg, 1, 0)
+    if after_prefill != want:
+        raise AssertionError(f"decode {arch}: prefill launches {after_prefill}, want {want}")
+    want = expected_launches(cfg, 1, n_steps)
+    if launches != want:
+        raise AssertionError(f"decode {arch}: launches {launches}, want {want}")
+    if not bool(finite) or tuple(toks.shape) != (b, n_steps) or not bool(
+            ((toks >= 0) & (toks < cfg.vocab)).all()):
+        raise AssertionError(f"decode {arch}: logits finite {bool(finite)}, tokens "
+                             f"{tuple(toks.shape)} in [{int(toks.min())}, {int(toks.max())}]")
+    rows = inputs["tokens"].shape[1] + cfg.n_img_tokens
+    if int(cache["pos"][0]) != rows + n_steps:
+        raise AssertionError(f"decode {arch}: pos {cache['pos'].tolist()} after {n_steps} steps")
+    peak = torch.cuda.max_memory_allocated()
+    kv = cache["k"].numel() * cache["k"].element_size() * 2
+    cross = sum(cache[k].numel() * cache[k].element_size() for k in ("cross_k", "cross_v")
+                if k in cache)
+    out = {"launches": launches, "prefill_ms": prefill_ms, "step_ms": decode_ms / n_steps,
+           "tokens_per_s": b * n_steps / (decode_ms / 1e3),
+           "tokens_per_s_with_prefill": b * n_steps / ((prefill_ms + decode_ms) / 1e3),
+           "peak_bytes": peak}
+    what = (f"B={b}, {cfg.n_img_tokens} stub image rows + {prompt} tokens (S = {rows})"
+            if cfg.family == "vlm" else
+            f"B={b}, {cfg.enc_frames} stub frames, {prompt}-token prompts"
+            if cfg.family == "encdec" else f"B={b}, {prompt}-token prompts")
+    log("decode", f"{arch} {cfg.dtype} full width and depth ({count_params(defs) / 1e9:.3f}B "
+        f"params, {n} decoder layers), {what}, cache max_len {max_len} (K/V {kv / 1e9:.2f} GB"
+        + (f", cross K/V {cross / 1e9:.2f} GB" if cross else "") + f"); init {init_s:.1f}s")
+    log("decode", f"{arch}: prefill {prefill_ms:.2f} ms, {n_steps} greedy decode steps "
+        f"{decode_ms:.2f} ms = {out['step_ms']:.2f} ms a step, {out['tokens_per_s']:.1f} "
+        f"tokens/s ({out['tokens_per_s_with_prefill']:.1f} with the prefill); peak memory "
+        f"{peak / 2**30:.2f} GiB ({peak} bytes); {b} x {n_steps} finite tokens, first row "
+        f"{toks[0, :8].tolist()}...")
+    log("decode", f"{arch} launches: {after_prefill} after the prefill, {launches} after the "
+        f"steps (= {n} a prefill for flash_attention, {n} a step for decode_attention)")
+    with torch.no_grad():
+        if cfg.family == "encdec":
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            TF.encode(params, cfg, inputs["enc_frames"])
+            torch.cuda.synchronize()
+            out["encoder_ms"] = (time.perf_counter() - t0) * 1e3
+            if ops.launches() != launches:
+                raise AssertionError(f"decode {arch}: the encoder launched a kernel")
+            log("decode", f"{arch}: the encoder alone (a second call, {cfg.n_enc_layers} "
+                f"layers over {cfg.enc_frames} frames, no kernel launched) "
+                f"{out['encoder_ms']:.2f} ms = {out['encoder_ms'] / prefill_ms:.3f} of the "
+                "prefill's wall time")
+        prof = {"prefill": _profile(f"{arch} prefill ({what})",
+                                    lambda: DEC.prefill(params, cfg, inputs, max_len=max_len)),
+                "decode": _profile(f"{arch} decode step ({b} rows)",
+                                   lambda: DEC.decode_step(params, cfg, cache, nxt))}
+        if cfg.family == "encdec":
+            prof["encoder"] = _profile(f"{arch} encoder ({b} x {cfg.enc_frames} frames)",
+                                       lambda: TF.encode(params, cfg, inputs["enc_frames"]))
+            log("breakdown", f"{arch}: encoder device busy {prof['encoder'][0]:.2f} ms = "
+                f"{prof['encoder'][0] / prof['prefill'][0]:.3f} of the prefill's busy")
+    out["busy_ms"] = {k: v[0] for k, v in prof.items()}
+    out["wall_ms"] = {k: v[1] for k, v in prof.items()}
+    del params, cache, logits, inputs
+    torch.cuda.empty_cache()
+    return out
 
 
 def sfu_exp_rate() -> float:
@@ -1140,6 +1430,14 @@ def phase_timing(worst: dict, serves: dict, fresh: dict) -> list:
     # granite-moe's serve shapes (24/8, D=64)
     rows.append(flash_row(1, 512, 24, 8, 64, "granite-moe-3b-a800m"))
     rows.append(decode_row(8, 1024, 528, 24, 8, 64, "granite-moe-3b-a800m"))
+    # the decode phase's shapes: the B=8 prefill, and a step at the mean
+    # valid length over its 32 steps (prompt + 16): phi-3-vision (32/32,
+    # D=96, S = 1088, cache 1152) and whisper's decoder (20/20, D=64, 192
+    # tokens, cache 448)
+    rows.append(flash_row(8, 1088, 32, 32, 96, "phi-3-vision-4.2b"))
+    rows.append(decode_row(8, 1152, 1104, 32, 32, 96, "phi-3-vision-4.2b"))
+    rows.append(flash_row(8, 192, 20, 20, 64, "whisper-large-v3"))
+    rows.append(decode_row(8, 448, 208, 20, 20, 64, "whisper-large-v3"))
 
     # the fixed cost of a call, beside the serve shapes: K1 with one 64-row
     # tile per head, K2 with one valid slot a row, and a one-element fill
@@ -1698,6 +1996,10 @@ def main() -> int:
         t0 = time.perf_counter()
         serves[label] = phase_serve(label, args)
         log("serve", f"{label} took {time.perf_counter() - t0:.1f}s with init")
+    for arch, b, prompt, max_len in DECODE_RUNS:
+        t0 = time.perf_counter()
+        serves[f"decode {arch}"] = phase_decode(arch, b, prompt, max_len)
+        log("decode", f"{arch} took {time.perf_counter() - t0:.1f}s with init")
     t0 = time.perf_counter()
     kernels = phase_timing(worst, serves, fresh)
     log("timing", f"phase took {time.perf_counter() - t0:.1f}s")

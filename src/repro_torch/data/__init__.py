@@ -1,2 +1,3 @@
 """Deterministic synthetic token batches (numpy only)."""
-from repro_torch.data.pipeline import DataConfig, SyntheticDataset, dataset_for
+from repro_torch.data.pipeline import (DataConfig, SyntheticDataset, dataset_for,
+                                       with_frontend_stubs)

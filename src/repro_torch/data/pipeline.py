@@ -12,9 +12,6 @@ identically after a kill).
 Task ``affine``: t[i+1] = (a * t[i] + c) mod vocab with fixed co-prime
 ``a``: a bijection a model learns quickly, so training runs show real loss
 decrease.  Task ``uniform``: i.i.d. tokens (for throughput benches).
-
-The reference's ``with_frontend_stubs`` (stub image/audio embeddings for the
-vlm and encdec families) is not copied: those families are not ported.
 """
 from __future__ import annotations
 
@@ -94,3 +91,19 @@ def dataset_for(cfg: ModelConfig, shape: ShapeConfig, task: str = "affine",
     return SyntheticDataset(DataConfig(vocab=cfg.vocab, seq_len=shape.seq_len,
                                        global_batch=shape.global_batch,
                                        task=task, seed=seed))
+
+
+def with_frontend_stubs(batch: Dict[str, np.ndarray], cfg: ModelConfig,
+                        seed: int = 0) -> Dict[str, np.ndarray]:
+    """Attach the vlm / audio stub embeddings (precomputed patch / frame
+    embeddings, N(0, 0.02^2), the same for every batch of a seed); the other
+    families' batches pass through unchanged."""
+    rng = np.random.RandomState(seed + 17)
+    b = batch["tokens"].shape[0]
+    if cfg.family == "vlm" and cfg.n_img_tokens:
+        batch = dict(batch, img_embeds=rng.randn(
+            b, cfg.n_img_tokens, cfg.d_model).astype(np.float32) * 0.02)
+    if cfg.family == "encdec":
+        batch = dict(batch, enc_frames=rng.randn(
+            b, cfg.enc_frames, cfg.d_model).astype(np.float32) * 0.02)
+    return batch

@@ -15,7 +15,9 @@ Port of ``repro.launch.serve`` with four more flags: ``--device`` (default
 the CUDA kernels; ``xla`` is plain PyTorch) and, for the hybrid family,
 ``--scan-impl`` (the prefill scan: ``assoc`` through K4, ``chunked`` or
 ``chunked_u`` through K3).  Hybrid prompts are exactly ``--prefill-len``
-tokens, as the engine requires for recurrent families.
+tokens, as the engine requires for recurrent families.  The vlm and encdec
+families are refused with the engine's reason (``UNSERVED_FAMILIES``); they
+decode through ``repro_torch.models.decoding``.
 
 Reports throughput (tokens/sec, requests/sec) and per-request latency
 percentiles (submit -> finish, so queueing inside the engine counts).
@@ -36,6 +38,7 @@ from repro_torch.configs.base import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.models.ssm import SCAN_IMPLS
 from repro_torch.models.transformer import PORTED_FAMILIES
 from repro_torch.serving import ServingEngine
+from repro_torch.serving.engine import UNSERVED_FAMILIES
 from repro_torch.steps import init_model, resolve_device
 
 
@@ -76,6 +79,9 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     if cfg.family not in PORTED_FAMILIES:
         raise SystemExit(f"serve in repro_torch runs the {PORTED_FAMILIES} families; "
                          f"{args.arch} is {cfg.family!r}, not ported yet")
+    if cfg.family in UNSERVED_FAMILIES:
+        raise SystemExit(f"serve: {UNSERVED_FAMILIES[cfg.family]} ({args.arch} is "
+                         f"{cfg.family!r}); it decodes through repro_torch.models.decoding")
     if args.scan_impl is not None:
         if cfg.ssm is None:
             raise SystemExit(f"--scan-impl: {args.arch} has no SSM mixer")

@@ -7,6 +7,8 @@ resume.
       --steps 4 --batch 4 --seq 512 --no-remat          # full width, on the card
   PYTHONPATH=src python -m repro_torch.launch.train --arch granite-moe-3b-a800m \\
       --smoke --device cpu --steps 2
+  PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-large-v3 \\
+      --smoke --device cpu --steps 2      # also phi-3-vision-4.2b
 
 Port of ``repro.launch.train`` with two more flags: ``--device`` (default
 ``cuda``; without a card it raises unless ``--device cpu``) and ``--json``
@@ -16,8 +18,10 @@ Port of ``repro.launch.train`` with two more flags: ``--device`` (default
 rerun with the same ``--ckpt-dir`` resumes from its latest checkpoint.
 
 ``train`` holds the loop of the reference's ``jaxlocal.train_job`` and is
-what the CLI, the tests and ``chip_smoke.py`` call.  The dense and moe
-families train with ``attention_impl="xla"`` (the moe loss adds 0.01 x the
+what the CLI, the tests and ``chip_smoke.py`` call.  Every batch carries
+the stub frontend's embeddings (``with_frontend_stubs``; vlm and encdec
+only), as in the reference CLI.  The dense, vlm, moe and encdec families
+train with ``attention_impl="xla"`` (the moe loss adds 0.01 x the
 load-balance aux): the hybrid block and ``"pallas"`` attention reach
 kernels with no backward, whose wrappers raise in step 0's forward, before
 any param changes (see ``kernels/ops.py``).
@@ -35,7 +39,7 @@ import torch
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs.base import ARCH_IDS, ModelConfig, get_config, get_smoke_config
 from repro_torch.core.objectstore import ObjectStore
-from repro_torch.data import DataConfig, SyntheticDataset
+from repro_torch.data import DataConfig, SyntheticDataset, with_frontend_stubs
 from repro_torch.optim import AdamWConfig, adamw_init
 from repro_torch.steps import init_model, make_train_step, resolve_device
 
@@ -83,7 +87,8 @@ def train(cfg: ModelConfig, steps: int, batch: int, seq: int, lr: float = 1e-2,
             if mgr is not None:
                 mgr.wait()
             raise RuntimeError(f"injected crash at step {step}")
-        b = {k: torch.from_numpy(v).to(dev) for k, v in ds.batch(step).items()}
+        b = {k: torch.from_numpy(v).to(dev)
+             for k, v in with_frontend_stubs(ds.batch(step), cfg, seed=seed).items()}
         params, opt_state, metrics = step_fn(params, opt_state, b)
         m = {k: float(v) for k, v in metrics.items()}
         history.append(m["loss"])

@@ -1,8 +1,8 @@
-"""Core layers of the dense decoder: norms, RoPE, GQA attention (prefill and
-decode), MLPs, embedding.
+"""Core layers: norms, RoPE, GQA attention (causal, bidirectional and
+cross, for prefill and decode), MLPs, embedding, learned position tables.
 
-Port of the dense subset of ``repro.models.layers``, with the same
-convention: ``<layer>_defs(cfg)`` returns a dict of ParamDef and
+Port of ``repro.models.layers`` (not its windowed and blockwise attention),
+with the same convention: ``<layer>_defs(cfg)`` returns a dict of ParamDef and
 ``<layer>(params, x, ...)`` applies it.  Softmax and norms run in f32 and
 cast back to the activation dtype, as in the reference.
 """
@@ -105,10 +105,13 @@ def _gqa_out(w: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return out.reshape(b, sq, hkv * g, out.shape[-1])
 
 
-def _masked_softmax(scores: torch.Tensor, mask: torch.Tensor, dtype) -> torch.Tensor:
+def _masked_softmax(scores: torch.Tensor, mask: Optional[torch.Tensor], dtype) -> torch.Tensor:
     # -1e30 (not -inf) masking, f32 softmax, then cast to the activation
-    # dtype BEFORE the product with V (layers.py:106-108 of the reference)
-    scores = torch.where(mask, scores.float(), torch.full((), -1e30, device=scores.device))
+    # dtype BEFORE the product with V (layers.py:106-108 of the reference).
+    # No mask: every key is attended (the reference's all-true mask)
+    scores = scores.float()
+    if mask is not None:
+        scores = torch.where(mask, scores, torch.full((), -1e30, device=scores.device))
     return torch.softmax(scores, dim=-1).to(dtype)
 
 
@@ -116,43 +119,80 @@ def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.einsum("bsd,dhk->bshk", x, w)
 
 
-def attn_forward(p: Params, x: torch.Tensor, positions: torch.Tensor, cfg
-                 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """Causal self-attention for prefill.  Returns (out, (k, v)) for the cache."""
+def cross_attention_defs(cfg) -> Params:
+    return attention_defs(cfg)
+
+
+def _plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     mask: Optional[torch.Tensor], cfg) -> torch.Tensor:
+    """softmax(q k^T / sqrt(D)) v in plain PyTorch; q (B,Sq,Hq,D), k/v
+    (B,Sk,Hkv,D); ``mask`` broadcasts to (B,Hkv,G,Sq,Sk), None for all keys."""
     hd = cfg.resolved_head_dim
-    n_rep = cfg.n_heads // cfg.n_kv_heads
-    q = apply_rope(_project(x, p["wq"]), positions, cfg.rope_theta)
-    k = apply_rope(_project(x, p["wk"]), positions, cfg.rope_theta)
-    v = _project(x, p["wv"])
+    scores = _gqa_scores(q, k, cfg.n_heads // cfg.n_kv_heads, hd)
+    return _gqa_out(_masked_softmax(scores, mask, q.dtype), v)
+
+
+def _check_impl(impl: str) -> None:
+    if impl not in ("pallas", "xla"):
+        raise NotImplementedError(f"attention_impl={impl!r} is not ported; "
+                                  "the port has 'xla' and 'pallas'")
+
+
+def attn_forward(p: Params, x: torch.Tensor, positions: torch.Tensor, cfg,
+                 kv_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                 causal: bool = True
+                 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Prefill / training attention.  Returns (out, (k, v)) for the cache.
+
+    ``kv_override`` = (k source, v source) makes it cross-attention: a 4-D
+    source (B,Sk,Hkv,D) is the K or V as it is, a 3-D one (B,Sk,d) is
+    projected; rope is skipped.  ``causal=False`` attends every key.  As in
+    the reference (layers.py:204), K1 takes only causal self-attention; the
+    rest runs the plain path on either ``attention_impl``."""
     impl = cfg.attention_impl
-    if impl == "pallas":
+    _check_impl(impl)
+    q = _project(x, p["wq"])
+    if kv_override is None:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(_project(x, p["wk"]), positions, cfg.rope_theta)
+        v = _project(x, p["wv"])
+    else:
+        src_k, src_v = kv_override
+        k = src_k if src_k.dim() == 4 else _project(src_k, p["wk"])
+        v = src_v if src_v.dim() == 4 else _project(src_v, p["wv"])
+    self_causal = kv_override is None and causal
+    if impl == "pallas" and self_causal:
         # K1: the CUDA flash-attention kernel for CUDA tensors, its plain
         # version for CPU tensors
         out = kops.flash_attention(q, k, v)
-    elif impl == "xla":
-        scores = _gqa_scores(q, k, n_rep, hd)
-        sq, sk = scores.shape[-2], scores.shape[-1]
-        iq = torch.arange(sq, device=x.device)[:, None]
-        ik = torch.arange(sk, device=x.device)[None, :]
-        out = _gqa_out(_masked_softmax(scores, ik <= iq, x.dtype), v)
     else:
-        raise NotImplementedError(f"attention_impl={impl!r} is not ported; "
-                                  "the port has 'xla' and 'pallas'")
+        mask = None
+        if self_causal:
+            iq = torch.arange(q.shape[1], device=x.device)[:, None]
+            mask = torch.arange(k.shape[1], device=x.device)[None, :] <= iq
+        out = _plain_attention(q, k, v, mask, cfg)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"]), (k, v)
 
 
 def attn_decode(p: Params, x: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
-                pos: torch.Tensor, cfg) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+                pos: torch.Tensor, cfg, cross: bool = False
+                ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Single-token decode.  x: (B,1,d); cache_{k,v}: (B,M,Hkv,D), UPDATED IN
     PLACE and returned.
 
     ``pos`` (B,) is the absolute position of the new token: it drives RoPE,
     the slot written and the valid-length mask.  A position >= M writes
-    nothing, as the reference's one-hot blend does."""
-    hd = cfg.resolved_head_dim
-    n_rep = cfg.n_heads // cfg.n_kv_heads
+    nothing, as the reference's one-hot blend does.  With ``cross=True`` the
+    cache is the fixed encoder K/V: nothing is written, no rope, every slot
+    is attended, on the plain path (layers.py:271 of the reference)."""
+    impl = cfg.attention_impl
+    _check_impl(impl)
+    q = _project(x, p["wq"])
+    if cross:
+        out = _plain_attention(q, cache_k, cache_v, None, cfg)
+        return torch.einsum("bshk,hkd->bsd", out, p["wo"]), (cache_k, cache_v)
     b, m = x.shape[0], cache_k.shape[1]
-    q = apply_rope(_project(x, p["wq"]), pos[:, None], cfg.rope_theta)
+    q = apply_rope(q, pos[:, None], cfg.rope_theta)
     k_new = apply_rope(_project(x, p["wk"]), pos[:, None], cfg.rope_theta)
     v_new = _project(x, p["wv"])
     # The reference writes with a one-hot blend over all M slots; here the
@@ -164,18 +204,12 @@ def attn_decode(p: Params, x: torch.Tensor, cache_k: torch.Tensor, cache_v: torc
     cache_k[rows, slot] = torch.where(in_range, k_new[:, 0], cache_k[rows, slot])
     cache_v[rows, slot] = torch.where(in_range, v_new[:, 0], cache_v[rows, slot])
     valid = torch.clamp(pos + 1, max=m).to(torch.int32)
-    impl = cfg.attention_impl
     if impl == "pallas":
         # K2: the CUDA flash-decode kernel (plain version on the CPU)
         out = kops.decode_attention(q, cache_k, cache_v, valid)
-    elif impl == "xla":
-        scores = _gqa_scores(q, cache_k, n_rep, hd)  # (B,Hkv,G,1,M)
-        mask = torch.arange(m, device=x.device)[None, :] < valid[:, None]  # (B,M)
-        w = _masked_softmax(scores, mask[:, None, None, None, :], x.dtype)
-        out = _gqa_out(w, cache_v)
     else:
-        raise NotImplementedError(f"attention_impl={impl!r} is not ported; "
-                                  "the port has 'xla' and 'pallas'")
+        mask = torch.arange(m, device=x.device)[None, :] < valid[:, None]  # (B,M)
+        out = _plain_attention(q, cache_k, cache_v, mask[:, None, None, None, :], cfg)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"]), (cache_k, cache_v)
 
 
@@ -245,3 +279,11 @@ def unembed(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
     if cfg.tie_embeddings:
         return torch.einsum("bsd,vd->bsv", x, p["embedding"])
     return torch.einsum("bsd,dv->bsv", x, p["lm_head"])
+
+
+def posembed_defs(cfg, max_len: int) -> Params:
+    """A learned absolute position table (max_len, d_model)."""
+    return {
+        "pos": ParamDef((max_len, cfg.d_model), (None, "embed"), init="embed", scale=0.02,
+                        dtype=adtype(cfg))
+    }

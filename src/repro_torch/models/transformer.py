@@ -1,27 +1,35 @@
-"""Model assembly for the dense, hybrid and moe decoder families.
+"""Model assembly for the dense, vlm, hybrid, moe and encdec families.
 
-Port of the dense, hybrid and moe parts of ``repro.models.transformer``:
+Port of ``repro.models.transformer`` but its ssm (xlstm) family:
 
   dense   pre-norm attention + MLP blocks;
+  vlm     the dense blocks over [img_proj(img_embeds); embed(tokens)]: the
+          stub image frontend's patch embeddings, projected, then the text;
   hybrid  hymba: attention and a Mamba mixer run in parallel on the same
           normed input and are mixed with learned non-negative weights,
           then an MLP;
   moe     attention + a mixture-of-experts FFN (``models/moe.py``), whose
-          load-balance loss each block returns as its aux.
+          load-balance loss each block returns as its aux;
+  encdec  whisper: a bidirectional encoder over the stub frontend's frame
+          embeddings plus a learned position table (``encode``), then a
+          causal decoder over tokens plus a learned position table, each
+          block with cross-attention to the encoder output.  As in the
+          reference, only the decoder's causal self-attention reaches K1.
 
 Per-layer params are stacked on a leading L dim; a Python loop over that dim
-replaces ``lax.scan``.  The other families (ssm, encdec, vlm) are not
-ported yet and raise ``NotImplementedError``.
+replaces ``lax.scan``.  The ssm family is not ported yet and raises
+``NotImplementedError``.
 
 ``forward_train`` trains with ``attention_impl="xla"``, as the reference's
 ``train_job`` does: no kernel has a backward (see ``kernels/ops.py``), so
 the kernel routes (``"pallas"`` attention, and the hybrid block's scans)
-raise under grad.  With ``remat=True`` each block runs under
-``torch.utils.checkpoint`` and is recomputed whole in the backward.  The
-reference's policy (``dots_with_no_batch_dims_saveable``) keeps the matmul
-outputs and recomputes only the elementwise ops between them.  Both give
-the same numbers; the port saves only each block's input, so it holds less
-memory and does the block's matmuls once more.
+raise under grad.  With ``remat=True`` each decoder block runs under
+``torch.utils.checkpoint`` and is recomputed whole in the backward (the
+encoder is not rematted, as in the reference).  The reference's policy
+(``dots_with_no_batch_dims_saveable``) keeps the matmul outputs and
+recomputes only the elementwise ops between them.  Both give the same
+numbers; the port saves only each block's input, so it holds less memory
+and does the block's matmuls once more.
 """
 from __future__ import annotations
 
@@ -38,7 +46,7 @@ from repro_torch.models.params import ParamDef, tree_map
 
 Params = Dict[str, Any]
 
-PORTED_FAMILIES = ("dense", "hybrid", "moe")
+PORTED_FAMILIES = ("dense", "vlm", "hybrid", "moe", "encdec")
 
 
 def check_family(cfg: ModelConfig) -> None:
@@ -54,7 +62,10 @@ def stack_defs(defs: Any, n: int) -> Any:
 
 
 def block_defs(cfg: ModelConfig) -> Params:
+    """One decoder block of the dense, vlm, hybrid or moe family."""
     check_family(cfg)
+    if cfg.family == "encdec":
+        raise ValueError("encdec has encoder and decoder blocks: enc_block_defs, dec_block_defs")
     d: Params = {"ln_attn": L.norm_defs(cfg), "attn": L.attention_defs(cfg)}
     if cfg.family == "hybrid":
         d["ssm"] = SSM.ssm_defs(cfg)
@@ -67,14 +78,38 @@ def block_defs(cfg: ModelConfig) -> Params:
     return d
 
 
-def model_defs(cfg: ModelConfig) -> Params:
-    """Full parameter tree; the blocks are stacked on a leading L dim (the
-    dense, hybrid and moe archs all use ``layer_impl="scan"``)."""
+def enc_block_defs(cfg: ModelConfig) -> Params:
+    return {"ln_attn": L.norm_defs(cfg), "attn": L.attention_defs(cfg),
+            "ln_mlp": L.norm_defs(cfg), "mlp": L.mlp_defs(cfg)}
+
+
+def dec_block_defs(cfg: ModelConfig) -> Params:
+    return {"ln_attn": L.norm_defs(cfg), "attn": L.attention_defs(cfg),
+            "ln_cross": L.norm_defs(cfg), "cross": L.cross_attention_defs(cfg),
+            "ln_mlp": L.norm_defs(cfg), "mlp": L.mlp_defs(cfg)}
+
+
+def model_defs(cfg: ModelConfig, max_seq: int = 0) -> Params:
+    """Full parameter tree; the blocks are stacked on a leading L dim (every
+    ported arch uses ``layer_impl="scan"``).  ``max_seq`` sizes the decoder's
+    absolute position table (encdec: ``max(max_seq, 8)`` rows, as in the
+    reference); rope models ignore it."""
     check_family(cfg)
     if cfg.layer_impl != "scan":
         raise NotImplementedError(f"layer_impl={cfg.layer_impl!r}: the port stacks layers")
-    return {"embed": L.embed_defs(cfg), "ln_f": L.norm_defs(cfg),
-            "blocks": stack_defs(block_defs(cfg), cfg.n_layers)}
+    defs: Params = {"embed": L.embed_defs(cfg), "ln_f": L.norm_defs(cfg)}
+    if cfg.family == "encdec":
+        defs["enc_blocks"] = stack_defs(enc_block_defs(cfg), cfg.n_enc_layers)
+        defs["blocks"] = stack_defs(dec_block_defs(cfg), cfg.n_layers)
+        defs["enc_ln_f"] = L.norm_defs(cfg)
+        defs["enc_pos"] = L.posembed_defs(cfg, cfg.enc_frames)
+        defs["dec_pos"] = L.posembed_defs(cfg, max(max_seq, 8))
+    else:
+        defs["blocks"] = stack_defs(block_defs(cfg), cfg.n_layers)
+    if cfg.family == "vlm":
+        defs["img_proj"] = {"w": ParamDef((cfg.d_model, cfg.d_model), ("embed", "embed_out"),
+                                          dtype=L.adtype(cfg))}
+    return defs
 
 
 def layer_params(blocks: Params, i: int) -> Params:
@@ -112,12 +147,15 @@ def _ffn(p: Params, xn2: torch.Tensor, cfg: ModelConfig
     return L.apply_mlp(p["mlp"], xn2, cfg.activation), None
 
 
-def _apply_block(p: Params, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig
+def _apply_block(p: Params, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig,
+                 enc: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor],
                             Dict[str, torch.Tensor], Optional[torch.Tensor]]:
-    """One decoder block.  Returns (x, (k, v), state, aux): ``state`` is the
-    hybrid block's recurrent state {conv, ssm}, empty for the others; ``aux``
-    is the moe block's load-balance loss, None for the others (``_ffn``)."""
+    """One decoder block.  Returns (x, (k, v), state, aux): ``state`` holds
+    the layer's other cache entries, the hybrid block's recurrent state
+    {conv, ssm} or the encdec block's cross K/V {cross_k, cross_v} (projected
+    from ``enc``, the encoder output), empty for the others; ``aux`` is the
+    moe block's load-balance loss, None for the others (``_ffn``)."""
     xn = L.apply_norm(p["ln_attn"], x, cfg.norm)
     attn_out, (k, v) = L.attn_forward(p["attn"], xn, positions, cfg)
     state: Dict[str, torch.Tensor] = {}
@@ -126,19 +164,55 @@ def _apply_block(p: Params, x: torch.Tensor, positions: torch.Tensor, cfg: Model
         x = mix(p, x, attn_out, ssm_out)
     else:
         x = x + attn_out
+    if cfg.family == "encdec":
+        xn = L.apply_norm(p["ln_cross"], x, cfg.norm)
+        cross_out, (ck, cv) = L.attn_forward(p["cross"], xn, positions, cfg,
+                                             kv_override=(enc, enc))
+        x = x + cross_out
+        state = {"cross_k": ck, "cross_v": cv}
     ffn_out, aux = _ffn(p, L.apply_norm(p["ln_mlp"], x, cfg.norm), cfg)
     return x + ffn_out, (k, v), state, aux
 
 
+def _positions(b: int, s: int, device) -> torch.Tensor:
+    return torch.arange(s, dtype=torch.int32, device=device).expand(b, s)
+
+
 def _embed_inputs(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Returns (x, positions, tokens)."""
+    """Returns (x, positions, tokens): the decoder's input stream.  vlm
+    prepends the projected stub image embeddings (positions run over the
+    whole sequence); encdec adds the decoder's position table."""
     check_family(cfg)
     tokens = batch["tokens"]
     x = L.embed_tokens(params["embed"], tokens, cfg)
+    if cfg.family == "vlm":
+        img = batch["img_embeds"].to(x.dtype) @ params["img_proj"]["w"]
+        x = torch.cat([img, x], dim=1)
+    if cfg.family == "encdec":
+        x = x + params["dec_pos"]["pos"][None, :x.shape[1]]
     b, s, _ = x.shape
-    positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
-    return x, positions, tokens
+    return x, _positions(b, s, x.device), tokens
+
+
+def encode(params: Params, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
+    """The encdec encoder: stub frame embeddings (B,F,d) plus its position
+    table, bidirectional blocks (the plain attention path on every
+    ``attention_impl``), then its final norm."""
+    x = frames.to(L.adtype(cfg)) + params["enc_pos"]["pos"][None, :frames.shape[1]]
+    positions = _positions(x.shape[0], x.shape[1], x.device)
+    for p in unbind_layers(params["enc_blocks"]):
+        xn = L.apply_norm(p["ln_attn"], x, cfg.norm)
+        x = x + L.attn_forward(p["attn"], xn, positions, cfg, causal=False)[0]
+        x = x + L.apply_mlp(p["mlp"], L.apply_norm(p["ln_mlp"], x, cfg.norm), cfg.activation)
+    return L.apply_norm(params["enc_ln_f"], x, cfg.norm)
+
+
+def encoder_output(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
+                   ) -> Optional[torch.Tensor]:
+    """``encode`` of the batch's ``enc_frames`` for encdec; None for the
+    decoder-only families."""
+    return encode(params, cfg, batch["enc_frames"]) if cfg.family == "encdec" else None
 
 
 # ---------------------------------------------------------------------------
@@ -160,13 +234,15 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor, mask: torch.Tenso
 def forward_train(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
                   remat: bool = True) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(total, {"loss", "aux"}) for a batch of {tokens, targets (B,S) int32,
-    mask (B,S) f32}; total = loss + 0.01 * aux, where aux is the sum over
-    the layers of the moe load-balance loss (an f32 zero for the dense and
-    hybrid families)."""
-    x, positions, _ = _embed_inputs(params, cfg, batch)
+    mask (B,S) f32}, plus the stub frontend's ``img_embeds`` (vlm) or
+    ``enc_frames`` (encdec); total = loss + 0.01 * aux, where aux is the sum
+    over the layers of the moe load-balance loss (an f32 zero for the other
+    families)."""
+    enc = encoder_output(params, cfg, batch)
+    x, positions, tokens = _embed_inputs(params, cfg, batch)
 
     def block(p: Params, h: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        out = _apply_block(p, h, positions, cfg)
+        out = _apply_block(p, h, positions, cfg, enc)
         return out[0], out[3]
 
     auxs = []
@@ -175,6 +251,8 @@ def forward_train(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tenso
         if aux is not None:
             auxs.append(aux)
     x = L.apply_norm(params["ln_f"], x, cfg.norm)
+    if cfg.family == "vlm":  # strip the image positions before the unembedding
+        x = x[:, -tokens.shape[1]:]
     logits = L.unembed(params["embed"], x, cfg)
     loss = cross_entropy(logits, batch["targets"], batch["mask"])
     aux = (torch.stack(auxs).sum() if auxs

@@ -1,6 +1,8 @@
 """Batched serving engine with continuous batching (slot refill).
 
-Port of ``repro.serving.engine`` for the dense, hybrid and moe families.  A
+Port of ``repro.serving.engine`` for the dense, hybrid and moe families
+(``UNSERVED_FAMILIES`` says why not the vlm and encdec ones; they decode
+through ``models.decoding.prefill`` and ``decode_step``).  A
 fixed pool of ``max_batch`` decode slots shares one batched cache.  A free
 slot is filled by prefilling the request at batch 1 and copying its cache into
 the slot, in place, on the batch axis (axis 1 of ``k``/``v``/``conv``/``ssm``,
@@ -35,6 +37,14 @@ from repro_torch.steps import resolve_device
 
 Params = Dict[str, Any]
 RECURRENT_FAMILIES = ("hybrid",)
+# ported families the engine refuses, as the reference's does (engine.py:54
+# there), and why; the reference's jitted prefill passes {"tokens"} alone,
+# which its vlm embedding cannot take
+UNSERVED_FAMILIES = {
+    "encdec": "the serving engine targets decoder LMs",
+    "vlm": "the serving engine feeds a prefill its tokens alone, and the vlm family "
+           "also needs img_embeds",
+}
 
 
 @dataclasses.dataclass
@@ -52,6 +62,10 @@ class ServingEngine:
     def __init__(self, cfg: ModelConfig, params: Params, *, max_batch: int = 4,
                  max_len: int = 128, prefill_len: int = 32, device="cuda"):
         check_family(cfg)
+        if cfg.family in UNSERVED_FAMILIES:
+            raise NotImplementedError(
+                f"{cfg.name} ({cfg.family}): {UNSERVED_FAMILIES[cfg.family]}; decode it "
+                "through repro_torch.models.decoding.prefill and decode_step")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params

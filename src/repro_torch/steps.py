@@ -30,10 +30,10 @@ def resolve_device(device="cuda") -> torch.device:
 def init_model(cfg: ModelConfig, seed: int = 0, max_seq: int = 128,
                device="cuda") -> Tuple[Any, Any]:
     """(defs, params) with params drawn on ``device`` from a generator seeded
-    with ``seed``.  ``max_seq`` is the reference's argument; it sizes position
-    tables, which the dense (rope) family does not have."""
+    with ``seed``.  ``max_seq`` sizes the absolute position tables (encdec's
+    decoder), as in the reference; the rope families have none."""
     dev = resolve_device(device)
-    defs = TF.model_defs(cfg)
+    defs = TF.model_defs(cfg, max_seq=max_seq)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     return defs, init_params(defs, gen, dev)

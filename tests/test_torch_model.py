@@ -239,7 +239,7 @@ def _def_table(defs):
 @pytest.mark.parametrize("arch", PORTED)
 def test_model_defs_match_jax_at_full_width(arch):
     want = _def_table(JTF.model_defs(JC.get_config(arch), max_seq=128))
-    got = _def_table(TTF.model_defs(TC.get_config(arch)))
+    got = _def_table(TTF.model_defs(TC.get_config(arch), max_seq=128))
     assert got == want
 
 
@@ -252,9 +252,11 @@ def test_unported_families_raise(arch):
 
 def test_init_params_match_jax_structure():
     """Dense (gemma), hybrid (hymba, whose SSM leaves take the "scaled"
-    uniform init) and moe (granite-moe: stacked experts, an f32 router)
-    smoke models."""
-    for arch in ("gemma-2b", "hymba-1.5b", "granite-moe-3b-a800m"):
+    uniform init), moe (granite-moe: stacked experts, an f32 router), vlm
+    (phi-3-vision: img_proj) and encdec (whisper: encoder and decoder
+    stacks, position tables) smoke models."""
+    for arch in ("gemma-2b", "hymba-1.5b", "granite-moe-3b-a800m", "phi-3-vision-4.2b",
+                 "whisper-large-v3"):
         jcfg, tcfg = _cfgs(arch)
         jp = JP.init_params(jax.random.PRNGKey(0), JTF.model_defs(jcfg))
         defs = TTF.model_defs(tcfg)
