@@ -20,7 +20,9 @@ differentiate its Pallas calls either).  A kernel's output is a fresh tensor
 with no ``grad_fn``, so a backward pass through it would leave everything
 upstream without a gradient, silently.  So each wrapper refuses, on every
 device, a call under grad mode with an input that requires grad.  Training
-runs ``attention_impl="xla"`` on the dense family, which reaches no kernel.
+runs ``attention_impl="xla"``, which reaches no kernel on any family: the
+hybrid block's scans train through the reference's differentiable scans in
+the model code (``models/ssm.py``), and K3 and K4 serve its prefill alone.
 """
 from __future__ import annotations
 
@@ -40,8 +42,8 @@ from repro_torch.kernels.ssm_scan import ssm_scan_bsdn, ssm_scan_fused_bsd
 
 def no_backward_message(name: str) -> str:
     return (f"{name}: the kernel has no backward, in the port or in the JAX package, "
-            "so a gradient cannot flow through it; training uses attention_impl='xla' "
-            "(the dense family), which calls no kernel")
+            "so a gradient cannot flow through it; training uses attention_impl='xla', "
+            "which calls no kernel")
 
 
 def _refuse_grad(name: str, *tensors: torch.Tensor) -> None:

@@ -9,6 +9,8 @@ resume.
       --smoke --device cpu --steps 2
   PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-large-v3 \\
       --smoke --device cpu --steps 2      # also phi-3-vision-4.2b
+  PYTHONPATH=src python -m repro_torch.launch.train --arch hymba-1.5b \\
+      --smoke --device cpu --steps 2      # also xlstm-125m
 
 Port of ``repro.launch.train`` with two more flags: ``--device`` (default
 ``cuda``; without a card it raises unless ``--device cpu``) and ``--json``
@@ -20,11 +22,14 @@ rerun with the same ``--ckpt-dir`` resumes from its latest checkpoint.
 ``train`` holds the loop of the reference's ``jaxlocal.train_job`` and is
 what the CLI, the tests and ``chip_smoke.py`` call.  Every batch carries
 the stub frontend's embeddings (``with_frontend_stubs``; vlm and encdec
-only), as in the reference CLI.  The dense, vlm, moe and encdec families
-train with ``attention_impl="xla"`` (the moe loss adds 0.01 x the
-load-balance aux): the hybrid block and ``"pallas"`` attention reach
-kernels with no backward, whose wrappers raise in step 0's forward, before
-any param changes (see ``kernels/ops.py``).
+only), as in the reference CLI.  Every family trains with
+``attention_impl="xla"`` (the moe loss adds 0.01 x the load-balance aux);
+the hybrid block's Mamba mixer trains through the reference's
+differentiable scans (``--scan-impl`` is a serve flag: the config's
+``scan_impl`` picks ``assoc`` or ``chunked``), and the xlstm blocks have no
+kernel.  ``"pallas"`` attention reaches K1, which has no backward: its
+wrapper raises in step 0's forward, before any param changes (see
+``kernels/ops.py``).
 """
 from __future__ import annotations
 

@@ -1,12 +1,13 @@
-"""Prefill / single-token decode with KV + recurrent-state caches, dense,
-vlm, hybrid, moe and encdec families.
+"""Prefill / single-token decode with KV + recurrent-state caches, for every
+family of the reference.
 
-Port of ``repro.models.decoding`` but its xlstm path.  Cache layouts (layer
-major, as in the reference):
+Port of ``repro.models.decoding``.  Cache layouts (layer major, as in the
+reference):
   dense, vlm, moe : {"k","v": (L,B,M,Hkv,Dh), "pos": (B,)}
   hybrid          : + {"conv": (L,B,k-1,di) activation dtype, "ssm": (L,B,di,n) f32}
   encdec          : + {"cross_k","cross_v": (L,B,F,Hkv,Dh)}, the encoder output's
                     K/V for each decoder layer, fixed after prefill
+  ssm (xlstm)     : {"blocks": [per-layer state dicts, batch-first], "pos": (B,)}
 
 The vlm prompt is its stub image rows and then its tokens, so ``pos`` after
 prefill counts both.  encdec's ``decode_step`` adds no decoder position
@@ -14,10 +15,19 @@ embedding: the reference's does not either (decoding.py:207 there; only its
 prefill adds ``dec_pos``), so a decoded token carries no position signal, and
 the port computes what the reference computes.
 
+``window > 0`` is the reference's sliding-window mode: a circular KV buffer
+of M = min(window, max_len) slots.  A prefill of s >= M tokens keeps the
+last M keys in slots 0..M-1, every prefill attends through the window on the
+plain path (no K1, as in the reference), and ``decode_step`` writes at slot
+``pos % M`` and attends min(pos + 1, M) slots (through K2 on ``"pallas"``).
+After a prefill with s > M and s % M != 0 the first step thus overwrites the
+key of position s - M + s % M, not the oldest one (s - M): the reference
+does the same (ROADMAP.md, R2), and the port computes what it computes.  The
+encdec and ssm families ignore ``window``, as in the reference.
+
 Unlike the reference, ``decode_step`` writes the new K/V and recurrent states
 into the cache it is given, in place, and returns that cache with a new
-``pos``.  The reference's sliding-window mode (``window > 0``, a circular KV
-buffer) is not ported.
+``pos`` (xlstm returns new state dicts).
 """
 from __future__ import annotations
 
@@ -28,17 +38,28 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as SSM
+from repro_torch.models import xlstm as XL
 from repro_torch.models.transformer import (_apply_block, _embed_inputs, _ffn, check_family,
-                                            encoder_output, layer_params, mix)
+                                            encoder_output, layer_params, mix,
+                                            xlstm_layer_kinds)
 
 Params = Dict[str, Any]
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               device="cuda") -> Dict[str, torch.Tensor]:
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, window: int = 0,
+               device="cuda") -> Dict[str, Any]:
+    """An empty cache of ``batch`` rows; its K/V hold M = min(window,
+    max_len) slots when ``window`` > 0, else ``max_len``."""
     check_family(cfg)
+    if cfg.family == "ssm":
+        blocks = [XL.init_mlstm_state(cfg, batch, device=device) if kind == "mlstm"
+                  else XL.init_slstm_state(cfg, batch, device=device)
+                  for kind in xlstm_layer_kinds(cfg)]
+        return {"blocks": blocks, "pos": torch.zeros((batch,), dtype=torch.int32,
+                                                     device=device)}
     dt = L.adtype(cfg)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+    m = min(window, max_len) if window else max_len
+    shape = (cfg.n_layers, batch, m, cfg.n_kv_heads, cfg.resolved_head_dim)
     cache = {
         "k": torch.zeros(shape, dtype=dt, device=device),
         "v": torch.zeros(shape, dtype=dt, device=device),
@@ -56,20 +77,25 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def prefill(params: Params, cfg: ModelConfig, batch_inputs: Dict[str, torch.Tensor],
-            max_len: int) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+            max_len: int, window: int = 0) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Run the full prompt, returning (last-token logits (B,1,V), filled cache).
     ``batch_inputs`` holds ``tokens`` and the stub frontend's ``img_embeds``
-    (vlm) or ``enc_frames`` (encdec, whose encoder runs first)."""
+    (vlm) or ``enc_frames`` (encdec, whose encoder runs first).  ``window``:
+    see the module docstring."""
+    if cfg.family == "ssm":
+        return _prefill_xlstm(params, cfg, batch_inputs)
+    if cfg.family == "encdec":
+        window = 0
     enc = encoder_output(params, cfg, batch_inputs)
     x, positions, _ = _embed_inputs(params, cfg, batch_inputs)
     b, s, _ = x.shape
-    m = max_len
-    if cfg.family == "encdec" and s > m:  # the reference does not truncate this prompt
-        raise ValueError(f"encdec prompt of {s} tokens is longer than max_len={m}")
-    cache = init_cache(cfg, b, m, device=x.device)
+    if cfg.family == "encdec" and s > max_len:  # the reference does not truncate this prompt
+        raise ValueError(f"encdec prompt of {s} tokens is longer than max_len={max_len}")
+    cache = init_cache(cfg, b, max_len, window, device=x.device)
+    m = cache["k"].shape[2]
     for li in range(cfg.n_layers):
         x, (k, v), state, _ = _apply_block(layer_params(params["blocks"], li), x, positions,
-                                           cfg, enc)
+                                           cfg, enc, window=window)
         for key, t in state.items():  # conv and ssm (hybrid), cross_k and cross_v (encdec)
             cache[key][li] = t
         if s >= m:  # keep the last m positions
@@ -84,8 +110,25 @@ def prefill(params: Params, cfg: ModelConfig, batch_inputs: Dict[str, torch.Tens
     return L.unembed(params["embed"], x, cfg), cache
 
 
+def _prefill_xlstm(params: Params, cfg: ModelConfig, batch_inputs: Dict[str, torch.Tensor]
+                   ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    x = L.embed_tokens(params["embed"], batch_inputs["tokens"], cfg)
+    b, s, _ = x.shape
+    states = []
+    for kind, p in zip(xlstm_layer_kinds(cfg), params["blocks"]):
+        if kind == "mlstm":
+            out, st = XL.mlstm_forward(p, x, cfg)
+            x = x + out
+        else:
+            x, st = XL.slstm_forward(p, x, cfg)
+        states.append(st)
+    x = L.apply_norm(params["ln_f"], x[:, -1:], cfg.norm)
+    pos = torch.full((b,), s, dtype=torch.int32, device=x.device)
+    return L.unembed(params["embed"], x, cfg), {"blocks": states, "pos": pos}
+
+
 def _decode_block(p: Params, x: torch.Tensor, layer: Dict[str, torch.Tensor],
-                  pos: torch.Tensor, cfg: ModelConfig
+                  pos: torch.Tensor, write_pos: torch.Tensor, cfg: ModelConfig
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One decoder block for one new token.  ``layer`` is the layer's slice
     of the cache; its K/V are written in place (the same new row on every
@@ -93,7 +136,8 @@ def _decode_block(p: Params, x: torch.Tensor, layer: Dict[str, torch.Tensor],
     recurrent state), the state empty but for hybrid.  The moe block routes
     the B tokens as B groups of one (no drops); its aux is discarded."""
     xn = L.apply_norm(p["ln_attn"], x, cfg.norm)
-    attn_out, _ = L.attn_decode(p["attn"], xn, layer["k"], layer["v"], pos, cfg)
+    attn_out, _ = L.attn_decode(p["attn"], xn, layer["k"], layer["v"], pos, cfg,
+                                write_pos=write_pos)
     state: Dict[str, torch.Tensor] = {}
     if cfg.family == "hybrid":
         ssm_out, state = SSM.ssm_decode(p["ssm"], xn, layer, cfg)
@@ -108,21 +152,41 @@ def _decode_block(p: Params, x: torch.Tensor, layer: Dict[str, torch.Tensor],
     return x + ffn_out, state
 
 
-def decode_step(params: Params, cfg: ModelConfig, cache: Dict[str, torch.Tensor],
-                tokens: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+def decode_step(params: Params, cfg: ModelConfig, cache: Dict[str, Any],
+                tokens: torch.Tensor, window: int = 0) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One token for every sequence.  tokens: (B,1).  Returns (logits (B,1,V),
-    cache): the same K/V (and conv/ssm) tensors, written in place, the
-    cross K/V unchanged, and ``pos + 1``.  No position embedding is added
-    (see the module docstring)."""
+    cache): the same K/V (and conv/ssm) tensors, written in place (at slot
+    ``pos % M`` when ``window`` > 0), the cross K/V unchanged, and
+    ``pos + 1``.  No position embedding is added (see the module
+    docstring)."""
     check_family(cfg)
+    if cfg.family == "ssm":
+        return _decode_xlstm(params, cfg, cache, tokens)
     pos = cache["pos"]  # (B,) absolute position of the new token
+    write_pos = pos % cache["k"].shape[2] if window else pos
     x = L.embed_tokens(params["embed"], tokens, cfg)
     for li in range(cfg.n_layers):
         layer = {key: t[li] for key, t in cache.items() if key != "pos"}
-        x, state = _decode_block(layer_params(params["blocks"], li), x, layer, pos, cfg)
+        x, state = _decode_block(layer_params(params["blocks"], li), x, layer, pos, write_pos,
+                                 cfg)
         for key, t in state.items():
             cache[key][li] = t
     new_cache = dict(cache)
     new_cache["pos"] = pos + 1
     x = L.apply_norm(params["ln_f"], x, cfg.norm)
     return L.unembed(params["embed"], x, cfg), new_cache
+
+
+def _decode_xlstm(params: Params, cfg: ModelConfig, cache: Dict[str, Any],
+                  tokens: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    x = L.embed_tokens(params["embed"], tokens, cfg)
+    states = []
+    for kind, p, st in zip(xlstm_layer_kinds(cfg), params["blocks"], cache["blocks"]):
+        if kind == "mlstm":
+            out, st = XL.mlstm_decode(p, x, st, cfg)
+            x = x + out
+        else:
+            x, st = XL.slstm_decode(p, x, st, cfg)
+        states.append(st)
+    x = L.apply_norm(params["ln_f"], x, cfg.norm)
+    return L.unembed(params["embed"], x, cfg), {"blocks": states, "pos": cache["pos"] + 1}

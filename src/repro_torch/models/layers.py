@@ -1,8 +1,8 @@
 """Core layers: norms, RoPE, GQA attention (causal, bidirectional and
 cross, for prefill and decode), MLPs, embedding, learned position tables.
 
-Port of ``repro.models.layers`` (not its windowed and blockwise attention),
-with the same convention: ``<layer>_defs(cfg)`` returns a dict of ParamDef and
+Port of ``repro.models.layers`` (not its blockwise attention, which is
+refused with or without a window), with the same convention: ``<layer>_defs(cfg)`` returns a dict of ParamDef and
 ``<layer>(params, x, ...)`` applies it.  Softmax and norms run in f32 and
 cast back to the activation dtype, as in the reference.
 """
@@ -139,16 +139,20 @@ def _check_impl(impl: str) -> None:
 
 
 def attn_forward(p: Params, x: torch.Tensor, positions: torch.Tensor, cfg,
+                 window: int = 0,
                  kv_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                  causal: bool = True
                  ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Prefill / training attention.  Returns (out, (k, v)) for the cache.
 
-    ``kv_override`` = (k source, v source) makes it cross-attention: a 4-D
-    source (B,Sk,Hkv,D) is the K or V as it is, a 3-D one (B,Sk,d) is
-    projected; rope is skipped.  ``causal=False`` attends every key.  As in
-    the reference (layers.py:204), K1 takes only causal self-attention; the
-    rest runs the plain path on either ``attention_impl``."""
+    ``window`` > 0 limits causal self-attention to the last ``window`` keys
+    (query i attends keys j with i - window < j <= i).  ``kv_override`` =
+    (k source, v source) makes it cross-attention: a 4-D source (B,Sk,Hkv,D)
+    is the K or V as it is, a 3-D one (B,Sk,d) is projected; rope is
+    skipped.  ``causal=False`` attends every key.  As in the reference
+    (layers.py:204), K1 takes only causal self-attention with no window; the
+    rest runs the plain path on either ``attention_impl``, so a windowed
+    prefill launches no K1 even when the prompt fits in the window."""
     impl = cfg.attention_impl
     _check_impl(impl)
     q = _project(x, p["wq"])
@@ -161,7 +165,7 @@ def attn_forward(p: Params, x: torch.Tensor, positions: torch.Tensor, cfg,
         k = src_k if src_k.dim() == 4 else _project(src_k, p["wk"])
         v = src_v if src_v.dim() == 4 else _project(src_v, p["wv"])
     self_causal = kv_override is None and causal
-    if impl == "pallas" and self_causal:
+    if impl == "pallas" and self_causal and window == 0:
         # K1: the CUDA flash-attention kernel for CUDA tensors, its plain
         # version for CPU tensors
         out = kops.flash_attention(q, k, v)
@@ -169,20 +173,26 @@ def attn_forward(p: Params, x: torch.Tensor, positions: torch.Tensor, cfg,
         mask = None
         if self_causal:
             iq = torch.arange(q.shape[1], device=x.device)[:, None]
-            mask = torch.arange(k.shape[1], device=x.device)[None, :] <= iq
+            ik = torch.arange(k.shape[1], device=x.device)[None, :]
+            mask = ik <= iq
+            if window > 0:
+                mask = mask & (ik > iq - window)
         out = _plain_attention(q, k, v, mask, cfg)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"]), (k, v)
 
 
 def attn_decode(p: Params, x: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
-                pos: torch.Tensor, cfg, cross: bool = False
+                pos: torch.Tensor, cfg, write_pos: Optional[torch.Tensor] = None,
+                cross: bool = False
                 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Single-token decode.  x: (B,1,d); cache_{k,v}: (B,M,Hkv,D), UPDATED IN
     PLACE and returned.
 
-    ``pos`` (B,) is the absolute position of the new token: it drives RoPE,
-    the slot written and the valid-length mask.  A position >= M writes
-    nothing, as the reference's one-hot blend does.  With ``cross=True`` the
+    ``pos`` (B,) is the absolute position of the new token: it drives RoPE
+    and the valid-length mask, min(pos + 1, M).  ``write_pos`` (B,) is the
+    slot written, ``pos`` by default; a circular sliding-window buffer passes
+    ``pos % M``.  A slot >= M writes nothing, as the reference's one-hot
+    blend does.  With ``cross=True`` the
     cache is the fixed encoder K/V: nothing is written, no rope, every slot
     is attended, on the plain path (layers.py:271 of the reference)."""
     impl = cfg.attention_impl
@@ -198,9 +208,11 @@ def attn_decode(p: Params, x: torch.Tensor, cache_k: torch.Tensor, cache_v: torc
     # The reference writes with a one-hot blend over all M slots; here the
     # one slot is written in place.  Out-of-range rows rewrite their old
     # value (no host sync to find them).
+    if write_pos is None:
+        write_pos = pos
     rows = torch.arange(b, device=x.device)
-    in_range = (pos < m)[:, None, None]
-    slot = pos.clamp(max=m - 1).long()
+    in_range = (write_pos < m)[:, None, None]
+    slot = write_pos.clamp(max=m - 1).long()
     cache_k[rows, slot] = torch.where(in_range, k_new[:, 0], cache_k[rows, slot])
     cache_v[rows, slot] = torch.where(in_range, v_new[:, 0], cache_v[rows, slot])
     valid = torch.clamp(pos + 1, max=m).to(torch.int32)

@@ -1,18 +1,25 @@
 """Mamba-style selective-scan SSM mixer (hymba's parallel-head partner).
 
-Port of ``repro.models.ssm``.  Prefill runs the recurrence over the whole
-prompt through a scan kernel; decode carries (conv_state, ssm_state) and is
-O(1) per token (plain PyTorch: one step has no kernel behind it in the
-reference either).
+Port of ``repro.models.ssm``.  ``ssm_forward`` runs the recurrence over the
+whole sequence; decode carries (conv_state, ssm_state) and is O(1) per token
+(plain PyTorch: one step has no kernel behind it in the reference either).
 
-``cfg.ssm.scan_impl`` picks the prefill scan as the reference does, and each
-choice computes what its JAX counterpart computes:
+``cfg.ssm.scan_impl`` picks the scan as the reference does, and each choice
+computes what its JAX counterpart computes.  Prefill (``train=False``, run
+under ``no_grad``) takes a scan kernel:
 
 - ``"assoc"`` (default): discretise to dA, dBx (B,S,di,N) in plain PyTorch,
   then K4 (``ops.ssm_scan``) runs the recurrence (the reference runs an
   associative scan in XLA);
 - ``"chunked"`` / ``"chunked_u"``: K3 (``ops.ssm_scan_fused``) discretises
   per step inside the kernel (the reference streams chunks in XLA).
+
+Training (``train=True``) computes the reference's own XLA scans in plain
+PyTorch ops that autograd differentiates, on every device: the kernels have
+no backward.  ``"assoc"`` is one associative scan over S
+(``_associative_scan``); ``"chunked"`` / ``"chunked_u"`` is
+``_chunked_selective_scan``, an associative scan within each chunk of
+``cfg.ssm.chunk`` steps plus the carried state's prefix correction.
 """
 from __future__ import annotations
 
@@ -22,7 +29,6 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels import ref as kref
 from repro_torch.models.layers import adtype
 from repro_torch.models.params import ParamDef
 
@@ -76,10 +82,56 @@ def _sel_params(p: Params, x: torch.Tensor, cfg
     return delta, bc[..., :n].float(), bc[..., n:].float()
 
 
-def ssm_forward(p: Params, x: torch.Tensor, cfg
+def _discretize(delta: torch.Tensor, B: torch.Tensor, x: torch.Tensor, A: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """ZOH discretisation: dA = exp(delta A), dBx = delta B x, both (B,S,di,n)
+    f32, from delta, x (B,S,di), B (B,S,n) and A (di,n)."""
+    return torch.exp(delta[..., None] * A), delta[..., None] * B[:, :, None, :] * x[..., None]
+
+
+def _associative_scan(a: torch.Tensor, b: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Inclusive scan over axis 1 of the linear recurrence's pairs under
+    ``(a1, b1) . (a2, b2) = (a1 a2, b1 a2 + b2)``, in ceil(log2 S) levels:
+    level l combines each step with the partial product ``2^l`` steps before
+    it.  Returns (prod a, h): h_t = a_t h_{t-1} + b_t from h_{-1} = 0."""
+    off = 1
+    while off < a.shape[1]:
+        a_cur, b_cur = a[:, off:], b[:, off:]
+        b = torch.cat([b[:, :off], b[:, :-off] * a_cur + b_cur], dim=1)
+        a = torch.cat([a[:, :off], a[:, :-off] * a_cur], dim=1)
+        off *= 2
+    return a, b
+
+
+def _chunked_selective_scan(delta: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
+                            xf: torch.Tensor, A: torch.Tensor, chunk: int
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's ``_chunked_selective_scan``: the recurrence in
+    (B,chunk,di,n) tiles with a carried state.  S is padded to a multiple of
+    the chunk with zero steps (delta = 0: dA = 1, dBx = 0, identity steps
+    that leave the state as it is).  Returns (y (B,S,di), h_last (B,di,n))."""
+    b, s, di = xf.shape
+    c = min(chunk, s)
+    pad = (-s) % c
+    if pad:
+        delta, B, C, xf = (F.pad(t, (0, 0, 0, pad)) for t in (delta, B, C, xf))
+    h = torch.zeros((b, di, A.shape[1]), dtype=torch.float32, device=xf.device)
+    ys = []
+    for lo in range(0, s + pad, c):
+        sl = slice(lo, lo + c)
+        pa, hs = _associative_scan(*_discretize(delta[:, sl], B[:, sl], xf[:, sl], A))
+        hs = hs + pa * h[:, None]  # prefix correction
+        ys.append(torch.einsum("bsdn,bsn->bsd", hs, C[:, sl]))
+        h = hs[:, -1]
+    return torch.cat(ys, dim=1)[:, :s], h
+
+
+def ssm_forward(p: Params, x: torch.Tensor, cfg, train: bool = False
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full-sequence selective scan.  x: (B,S,d) -> (y (B,S,d), final state
-    {conv (B,k-1,di), ssm (B,di,n) f32})."""
+    {conv (B,k-1,di), ssm (B,di,n) f32}).  ``train`` picks the
+    differentiable scans over the kernels (see the module docstring)."""
     xz = x @ p["in_proj"]
     di = xz.shape[-1] // 2
     xs, z = xz[..., :di], xz[..., di:]
@@ -90,12 +142,17 @@ def ssm_forward(p: Params, x: torch.Tensor, cfg
     xf = xs.float()
 
     impl = cfg.ssm.scan_impl
-    if impl == "assoc":
-        y, h_last = kops.ssm_scan(*kref.ssm_discretize(delta, B, xf, A), C)  # K4
-    elif impl in ("chunked", "chunked_u"):
-        y, h_last = kops.ssm_scan_fused(delta, B, C, xf, A)  # K3
-    else:
+    if impl not in SCAN_IMPLS:
         raise ValueError(f"scan_impl={impl!r}; the port has {SCAN_IMPLS}")
+    if train and impl == "assoc":
+        _, h = _associative_scan(*_discretize(delta, B, xf, A))
+        y, h_last = torch.einsum("bsdn,bsn->bsd", h, C), h[:, -1]
+    elif train:
+        y, h_last = _chunked_selective_scan(delta, B, C, xf, A, cfg.ssm.chunk)
+    elif impl == "assoc":
+        y, h_last = kops.ssm_scan(*_discretize(delta, B, xf, A), C)  # K4
+    else:
+        y, h_last = kops.ssm_scan_fused(delta, B, C, xf, A)  # K3
     y = y + p["D"] * xf
     y = y.to(x.dtype) * F.silu(z)
     return y @ p["out_proj"], {"conv": conv_state, "ssm": h_last}

@@ -1,6 +1,6 @@
-"""Model assembly for the dense, vlm, hybrid, moe and encdec families.
+"""Model assembly for every family of the reference.
 
-Port of ``repro.models.transformer`` but its ssm (xlstm) family:
+Port of ``repro.models.transformer``:
 
   dense   pre-norm attention + MLP blocks;
   vlm     the dense blocks over [img_proj(img_embeds); embed(tokens)]: the
@@ -14,22 +14,28 @@ Port of ``repro.models.transformer`` but its ssm (xlstm) family:
           embeddings plus a learned position table (``encode``), then a
           causal decoder over tokens plus a learned position table, each
           block with cross-attention to the encoder output.  As in the
-          reference, only the decoder's causal self-attention reaches K1.
+          reference, only the decoder's causal self-attention reaches K1;
+  ssm     xlstm: mLSTM blocks with an sLSTM block every
+          ``cfg.xlstm.slstm_every``-th layer (``models/xlstm.py``), always
+          a list of per-layer params.
 
-Per-layer params are stacked on a leading L dim; a Python loop over that dim
-replaces ``lax.scan``.  The ssm family is not ported yet and raises
-``NotImplementedError``.
+With ``layer_impl="scan"`` per-layer params are stacked on a leading L dim
+and a Python loop over that dim replaces ``lax.scan``; with ``"unroll"``
+``blocks`` is a list of per-layer param dicts, as in the reference.
 
 ``forward_train`` trains with ``attention_impl="xla"``, as the reference's
 ``train_job`` does: no kernel has a backward (see ``kernels/ops.py``), so
-the kernel routes (``"pallas"`` attention, and the hybrid block's scans)
-raise under grad.  With ``remat=True`` each decoder block runs under
-``torch.utils.checkpoint`` and is recomputed whole in the backward (the
-encoder is not rematted, as in the reference).  The reference's policy
-(``dots_with_no_batch_dims_saveable``) keeps the matmul outputs and
-recomputes only the elementwise ops between them.  Both give the same
-numbers; the port saves only each block's input, so it holds less memory
-and does the block's matmuls once more.
+``"pallas"`` attention raises under grad.  The hybrid block's Mamba mixer
+trains through the reference's differentiable scans (``ssm_forward(...,
+train=True)``), never through K3 or K4.  ``window`` > 0 limits its causal
+self-attention to the last ``window`` keys, as in the reference (encdec
+ignores it there and here).  With ``remat=True`` each decoder block runs
+under ``torch.utils.checkpoint`` and is recomputed whole in the backward
+(the encoder is not rematted, and neither are the xlstm blocks, as in the
+reference).  The reference's policy (``dots_with_no_batch_dims_saveable``)
+keeps the matmul outputs and recomputes only the elementwise ops between
+them.  Both give the same numbers; the port saves only each block's input,
+so it holds less memory and does the block's matmuls once more.
 """
 from __future__ import annotations
 
@@ -42,11 +48,12 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
+from repro_torch.models import xlstm as XL
 from repro_torch.models.params import ParamDef, tree_map
 
 Params = Dict[str, Any]
 
-PORTED_FAMILIES = ("dense", "vlm", "hybrid", "moe", "encdec")
+PORTED_FAMILIES = ("dense", "vlm", "hybrid", "moe", "encdec", "ssm")
 
 
 def check_family(cfg: ModelConfig) -> None:
@@ -64,8 +71,9 @@ def stack_defs(defs: Any, n: int) -> Any:
 def block_defs(cfg: ModelConfig) -> Params:
     """One decoder block of the dense, vlm, hybrid or moe family."""
     check_family(cfg)
-    if cfg.family == "encdec":
-        raise ValueError("encdec has encoder and decoder blocks: enc_block_defs, dec_block_defs")
+    if cfg.family in ("encdec", "ssm"):
+        raise ValueError(f"{cfg.family} has its own blocks: enc_block_defs and "
+                         "dec_block_defs (encdec), xlstm_layer_kinds (ssm)")
     d: Params = {"ln_attn": L.norm_defs(cfg), "attn": L.attention_defs(cfg)}
     if cfg.family == "hybrid":
         d["ssm"] = SSM.ssm_defs(cfg)
@@ -89,40 +97,59 @@ def dec_block_defs(cfg: ModelConfig) -> Params:
             "ln_mlp": L.norm_defs(cfg), "mlp": L.mlp_defs(cfg)}
 
 
+def xlstm_layer_kinds(cfg: ModelConfig) -> List[str]:
+    """"slstm" for every ``slstm_every``-th layer (1-based), else "mlstm"."""
+    ev = cfg.xlstm.slstm_every
+    return ["slstm" if (ev and (i + 1) % ev == 0) else "mlstm" for i in range(cfg.n_layers)]
+
+
+def _layers(defs: Params, n: int, cfg: ModelConfig) -> Any:
+    """n layers of ``defs``: stacked on a leading L dim, or a list of n."""
+    return stack_defs(defs, n) if cfg.layer_impl == "scan" else [defs for _ in range(n)]
+
+
 def model_defs(cfg: ModelConfig, max_seq: int = 0) -> Params:
-    """Full parameter tree; the blocks are stacked on a leading L dim (every
-    ported arch uses ``layer_impl="scan"``).  ``max_seq`` sizes the decoder's
-    absolute position table (encdec: ``max(max_seq, 8)`` rows, as in the
-    reference); rope models ignore it."""
+    """Full parameter tree.  ``blocks`` is stacked on a leading L dim for
+    ``layer_impl="scan"`` and a list of per-layer defs for ``"unroll"``
+    (always for ssm).  ``max_seq`` sizes the decoder's absolute position
+    table (encdec: ``max(max_seq, 8)`` rows, as in the reference); rope
+    models ignore it."""
     check_family(cfg)
-    if cfg.layer_impl != "scan":
-        raise NotImplementedError(f"layer_impl={cfg.layer_impl!r}: the port stacks layers")
+    if cfg.layer_impl not in ("scan", "unroll"):
+        raise ValueError(f"layer_impl={cfg.layer_impl!r}")
     defs: Params = {"embed": L.embed_defs(cfg), "ln_f": L.norm_defs(cfg)}
-    if cfg.family == "encdec":
-        defs["enc_blocks"] = stack_defs(enc_block_defs(cfg), cfg.n_enc_layers)
-        defs["blocks"] = stack_defs(dec_block_defs(cfg), cfg.n_layers)
+    if cfg.family == "ssm":
+        defs["blocks"] = [XL.mlstm_defs(cfg) if kind == "mlstm" else XL.slstm_defs(cfg)
+                          for kind in xlstm_layer_kinds(cfg)]
+    elif cfg.family == "encdec":
+        defs["enc_blocks"] = _layers(enc_block_defs(cfg), cfg.n_enc_layers, cfg)
+        defs["blocks"] = _layers(dec_block_defs(cfg), cfg.n_layers, cfg)
         defs["enc_ln_f"] = L.norm_defs(cfg)
         defs["enc_pos"] = L.posembed_defs(cfg, cfg.enc_frames)
         defs["dec_pos"] = L.posembed_defs(cfg, max(max_seq, 8))
     else:
-        defs["blocks"] = stack_defs(block_defs(cfg), cfg.n_layers)
+        defs["blocks"] = _layers(block_defs(cfg), cfg.n_layers, cfg)
     if cfg.family == "vlm":
         defs["img_proj"] = {"w": ParamDef((cfg.d_model, cfg.d_model), ("embed", "embed_out"),
                                           dtype=L.adtype(cfg))}
     return defs
 
 
-def layer_params(blocks: Params, i: int) -> Params:
-    """Layer i's params from the stacked blocks (the serving paths, which run
-    without grad)."""
+def layer_params(blocks: Any, i: int) -> Params:
+    """Layer i's params from the stacked (or listed) blocks (the serving
+    paths, which run without grad)."""
+    if isinstance(blocks, list):
+        return blocks[i]
     return tree_map(lambda t: t[i], blocks)
 
 
-def unbind_layers(blocks: Params) -> List[Params]:
+def unbind_layers(blocks: Any) -> List[Params]:
     """Every layer's params from the stacked blocks, one ``torch.unbind`` per
-    leaf.  Under grad, its backward stacks the L layer grads once; a ``t[i]``
-    per layer would build a zero tensor the size of the whole leaf for each
-    layer and sum L of them."""
+    leaf (listed blocks are returned as they are).  Under grad, its backward
+    stacks the L layer grads once; a ``t[i]`` per layer would build a zero
+    tensor the size of the whole leaf for each layer and sum L of them."""
+    if isinstance(blocks, list):
+        return blocks
     if isinstance(blocks, dict):
         per_key = {k: unbind_layers(v) for k, v in blocks.items()}
         n = len(next(iter(per_key.values())))
@@ -148,19 +175,21 @@ def _ffn(p: Params, xn2: torch.Tensor, cfg: ModelConfig
 
 
 def _apply_block(p: Params, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig,
-                 enc: Optional[torch.Tensor] = None
+                 enc: Optional[torch.Tensor] = None, window: int = 0, train: bool = False
                  ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor],
                             Dict[str, torch.Tensor], Optional[torch.Tensor]]:
     """One decoder block.  Returns (x, (k, v), state, aux): ``state`` holds
     the layer's other cache entries, the hybrid block's recurrent state
     {conv, ssm} or the encdec block's cross K/V {cross_k, cross_v} (projected
     from ``enc``, the encoder output), empty for the others; ``aux`` is the
-    moe block's load-balance loss, None for the others (``_ffn``)."""
+    moe block's load-balance loss, None for the others (``_ffn``).
+    ``window`` goes to the self-attention; ``train`` picks the hybrid
+    mixer's differentiable scans over the scan kernels."""
     xn = L.apply_norm(p["ln_attn"], x, cfg.norm)
-    attn_out, (k, v) = L.attn_forward(p["attn"], xn, positions, cfg)
+    attn_out, (k, v) = L.attn_forward(p["attn"], xn, positions, cfg, window=window)
     state: Dict[str, torch.Tensor] = {}
     if cfg.family == "hybrid":
-        ssm_out, state = SSM.ssm_forward(p["ssm"], xn, cfg)
+        ssm_out, state = SSM.ssm_forward(p["ssm"], xn, cfg, train=train)
         x = mix(p, x, attn_out, ssm_out)
     else:
         x = x + attn_out
@@ -232,24 +261,30 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor, mask: torch.Tenso
 
 
 def forward_train(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
-                  remat: bool = True) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                  window: int = 0, remat: bool = True
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(total, {"loss", "aux"}) for a batch of {tokens, targets (B,S) int32,
     mask (B,S) f32}, plus the stub frontend's ``img_embeds`` (vlm) or
     ``enc_frames`` (encdec); total = loss + 0.01 * aux, where aux is the sum
     over the layers of the moe load-balance loss (an f32 zero for the other
-    families)."""
+    families).  ``window`` > 0 is the sliding window of the self-attention
+    (ignored by encdec and ssm, as in the reference)."""
     enc = encoder_output(params, cfg, batch)
     x, positions, tokens = _embed_inputs(params, cfg, batch)
+    window = window if cfg.family != "encdec" else 0
 
     def block(p: Params, h: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        out = _apply_block(p, h, positions, cfg, enc)
+        out = _apply_block(p, h, positions, cfg, enc, window=window, train=True)
         return out[0], out[3]
 
     auxs = []
-    for lp in unbind_layers(params["blocks"]):
-        x, aux = checkpoint(block, lp, x, use_reentrant=False) if remat else block(lp, x)
-        if aux is not None:
-            auxs.append(aux)
+    if cfg.family == "ssm":
+        x = _run_xlstm(params, x, cfg)
+    else:
+        for lp in unbind_layers(params["blocks"]):
+            x, aux = checkpoint(block, lp, x, use_reentrant=False) if remat else block(lp, x)
+            if aux is not None:
+                auxs.append(aux)
     x = L.apply_norm(params["ln_f"], x, cfg.norm)
     if cfg.family == "vlm":  # strip the image positions before the unembedding
         x = x[:, -tokens.shape[1]:]
@@ -258,3 +293,14 @@ def forward_train(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tenso
     aux = (torch.stack(auxs).sum() if auxs
            else torch.zeros((), dtype=torch.float32, device=loss.device))
     return loss + 0.01 * aux, {"loss": loss, "aux": aux}
+
+
+def _run_xlstm(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The xlstm stack over the whole sequence, its decode states dropped:
+    the mLSTM's residual is added here, the sLSTM adds its own."""
+    for kind, p in zip(xlstm_layer_kinds(cfg), params["blocks"]):
+        if kind == "mlstm":
+            x = x + XL.mlstm_forward(p, x, cfg)[0]
+        else:
+            x = XL.slstm_forward(p, x, cfg)[0]
+    return x

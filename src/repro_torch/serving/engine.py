@@ -1,13 +1,13 @@
 """Batched serving engine with continuous batching (slot refill).
 
-Port of ``repro.serving.engine`` for the dense, hybrid and moe families
-(``UNSERVED_FAMILIES`` says why not the vlm and encdec ones; they decode
-through ``models.decoding.prefill`` and ``decode_step``).  A
-fixed pool of ``max_batch`` decode slots shares one batched cache.  A free
-slot is filled by prefilling the request at batch 1 and copying its cache into
-the slot, in place, on the batch axis (axis 1 of ``k``/``v``/``conv``/``ssm``,
-axis 0 of ``pos``).  Decode ticks advance every slot one token; finished
-slots are refilled at once.
+Port of ``repro.serving.engine`` for the dense, hybrid, moe and ssm (xlstm)
+families (``UNSERVED_FAMILIES`` says why not the vlm and encdec ones; they
+decode through ``models.decoding.prefill`` and ``decode_step``).  A fixed
+pool of ``max_batch`` decode slots shares one batched cache.  A free slot is
+filled by prefilling the request at batch 1 and copying its cache into the
+slot, in place, on the batch axis: axis 1 of ``k``/``v``/``conv``/``ssm``,
+axis 0 of ``pos`` and of every xlstm state leaf.  Decode ticks advance every
+slot one token; finished slots are refilled at once.
 
 Dense prompts are right-padded to ``prefill_len`` and masked through the
 cache's valid length (``pos``): admission rewinds ``pos`` to
@@ -16,10 +16,18 @@ cache's valid length (``pos``): admission rewinds ``pos`` to
 dense rules, as in the reference: its first decode routes that token as a
 group of one, with no drops, so where the prefill dropped it the K/V
 rewritten at layers >= 1 differ from the prefill's.  Recurrent families
-(hybrid) fold pads into their state and re-processing a token is not
+(hybrid, ssm) fold pads into their state and re-processing a token is not
 idempotent, so their prompts must be exactly ``prefill_len`` long, the first
 token comes from the prefill logits, ``pos`` is not rewound, and a request
 that is done after that token never takes a slot.
+
+The reference's engine inserts the xlstm mLSTM's ``conv`` state (B,3,dp) on
+axis 1, because its ``_batch_axis`` matches the ``'conv'`` marker of the
+hybrid cache; its own comment says xlstm states are batch-first, and with
+more than one slot admitting into slot k > 0 overwrites slot 0's conv state
+(ROADMAP.md, R3).  The port inserts every xlstm leaf on axis 0, as that
+comment intends: at ``max_batch=1`` it gives the reference engine's tokens,
+and at ``max_batch > 1`` each request's tokens are those it decodes alone.
 """
 from __future__ import annotations
 
@@ -36,7 +44,7 @@ from repro_torch.models.transformer import check_family
 from repro_torch.steps import resolve_device
 
 Params = Dict[str, Any]
-RECURRENT_FAMILIES = ("hybrid",)
+RECURRENT_FAMILIES = ("hybrid", "ssm")
 # ported families the engine refuses, as the reference's does (engine.py:54
 # there), and why; the reference's jitted prefill passes {"tokens"} alone,
 # which its vlm embedding cannot take
@@ -142,9 +150,14 @@ class ServingEngine:
             # token (idempotent kv write), yielding the first new-token logits
             self.cache["pos"][slot] = plen - 1
             req.next_input = req.prompt[-1]
-        for key, t in cache1.items():  # every other leaf has batch axis 1
-            if key != "pos":
-                self.cache[key][:, slot] = t[:, 0]
+        if self.cfg.family == "ssm":  # batch-first state leaves
+            for dst, src in zip(self.cache["blocks"], cache1["blocks"]):
+                for key, t in src.items():
+                    dst[key][slot] = t[0]
+        else:
+            for key, t in cache1.items():  # every other leaf has batch axis 1
+                if key != "pos":
+                    self.cache[key][:, slot] = t[:, 0]
         self.slots[slot] = req
 
     def _decode_tick(self) -> None:

@@ -1,8 +1,9 @@
 """The port's training path against the JAX package's, on the CPU at smoke
 size: the loss, one AdamW step and three, the schedule and the clip, remat,
 the synthetic data, checkpoints (which cross-load between the packages), the
-train loop's crash and resume, the launcher, and the kernel wrappers'
-refusal to run under grad.
+train loop's crash and resume, the launcher, the kernel wrappers' refusal
+to run under grad, and hybrid (hymba) training through the reference's
+differentiable scans, with and without a sliding window.
 
 Params are made by the JAX package (``repro.steps.init_model``) and carried
 over with ``params_from_numpy``; other inputs are made with numpy from a
@@ -33,6 +34,7 @@ from repro_torch.core import ObjectStore
 from repro_torch.data import pipeline as TD
 from repro_torch.kernels import ops as kops
 from repro_torch.launch import train as TT
+from repro_torch.models import decoding as TDEC
 from repro_torch.models import transformer as TTF
 from repro_torch.models.params import params_from_numpy, tree_leaves, tree_map, tree_paths
 from repro_torch.optim import adamw as TA
@@ -593,11 +595,13 @@ def test_kernel_wrappers_refuse_grad(name):
 
 @pytest.mark.parametrize("arch,over,kernel", [
     ("gemma-2b", dict(attention_impl="pallas"), "flash_attention"),
-    ("hymba-1.5b", {}, "ssm_scan"),
+    ("hymba-1.5b", dict(attention_impl="pallas"), "flash_attention"),
 ])
 def test_training_refuses_the_kernel_routes(arch, over, kernel):
     """forward_train through a kernel raises under grad, and the train loop
-    raises the same in step 0, before any step is taken."""
+    raises the same in step 0, before any step is taken.  The hybrid block's
+    scans train without a kernel (``ssm_forward(..., train=True)``), so a
+    hybrid model raises at K1 alone."""
     _, tcfg = _cfgs(arch, **over)
     _, params = init_model(tcfg, device="cpu")
     tree_map(lambda t: t.requires_grad_(True), params)
@@ -609,10 +613,94 @@ def test_training_refuses_the_kernel_routes(arch, over, kernel):
     assert steps_taken == []
 
 
-def test_hybrid_chunked_scan_names_k3():
+@pytest.fixture
+def scan_calls(monkeypatch):
+    """Calls of the K4 and K3 wrappers, counted (on the CPU a wrapper runs
+    its plain version and does not count a launch)."""
+    counts = dict.fromkeys(("ssm_scan", "ssm_scan_fused"), 0)
+    for name in counts:
+        def counted(*args, _fn=getattr(kops, name), _name=name):
+            counts[_name] += 1
+            return _fn(*args)
+        monkeypatch.setattr(kops, name, counted)
+    return counts
+
+
+def test_hybrid_chunked_scan_names_k3(scan_calls):
+    """``scan_impl="chunked"`` names K3 for the prefill, once a layer, and
+    training on it reaches neither scan kernel."""
     _, tcfg = _cfgs("hymba-1.5b")
     tcfg = dataclasses.replace(tcfg, ssm=dataclasses.replace(tcfg.ssm, scan_impl="chunked"))
     _, params = init_model(tcfg, device="cpu")
+    batch = _tb(_batch(tcfg.vocab, seed=8))
+    with torch.no_grad():
+        TDEC.prefill(params, tcfg, {"tokens": batch["tokens"].long()}, max_len=16)
+    assert scan_calls == {"ssm_scan": 0, "ssm_scan_fused": tcfg.n_layers}
     tree_map(lambda t: t.requires_grad_(True), params)
-    with pytest.raises(RuntimeError, match="ssm_scan_fused: the kernel has no backward"):
-        TTF.forward_train(params, tcfg, _tb(_batch(tcfg.vocab, seed=8)), remat=False)
+    total, _ = TTF.forward_train(params, tcfg, batch, remat=False)
+    total.backward()
+    assert scan_calls == {"ssm_scan": 0, "ssm_scan_fused": tcfg.n_layers}
+    assert all(t.grad is not None for t in tree_leaves(params))
+
+
+# -- hybrid training (P1): the reference's differentiable scans ---------------------
+
+
+def _hybrid(scan_impl, tame=True):
+    """hymba-smoke on ``scan_impl``; the chunked scan in chunks of 6, so the
+    16-token batches take three chunks and two identity pad steps."""
+    ssm = dict(scan_impl=scan_impl, chunk=6 if scan_impl != "assoc" else 256)
+    jcfg, tcfg = _cfgs("hymba-1.5b")
+    jcfg = dataclasses.replace(jcfg, ssm=dataclasses.replace(jcfg.ssm, **ssm))
+    tcfg = dataclasses.replace(tcfg, ssm=dataclasses.replace(tcfg.ssm, **ssm))
+    _, jp = JS.init_model(jcfg, seed=0, max_seq=16)
+    if tame:
+        jp = _tame(jp, jcfg)
+    return jcfg, tcfg, jp, _carry(jp)
+
+
+@pytest.mark.parametrize("window", [0, 6])
+@pytest.mark.parametrize("scan_impl", ["assoc", "chunked"])
+def test_hybrid_loss_and_grads_match_jax(scan_impl, window, scan_calls):
+    """hymba-smoke: the loss and every grad leaf against ``jax.grad`` of the
+    reference's ``forward_train``, with and without a sliding window of 6
+    over the 16 tokens; no scan kernel is called."""
+    jcfg, tcfg, jp, tp = _hybrid(scan_impl)
+    batch = _batch(jcfg.vocab, seed=4)
+    (jtotal, jm), jgrads = jax.value_and_grad(
+        lambda p: JTF.forward_train(p, jcfg, _jb(batch), window=window, remat=False),
+        has_aux=True)(jp)
+    tree_map(lambda t: t.requires_grad_(True), tp)
+    ttotal, tm = TTF.forward_train(tp, tcfg, _tb(batch), window=window, remat=True)
+    ttotal.backward()
+    assert _rel(ttotal.detach(), jtotal) <= 1e-5 and _rel(tm["loss"].detach(), jm["loss"]) <= 1e-5
+    assert float(tm["aux"]) == float(jm["aux"]) == 0.0
+    _close_trees(tree_map(lambda t: t.grad, tp), jgrads)
+    assert scan_calls == {"ssm_scan": 0, "ssm_scan_fused": 0}
+
+
+@pytest.mark.parametrize("scan_impl", ["assoc", "chunked"])
+def test_hybrid_one_adamw_step_matches_jax(scan_impl):
+    jcfg, tcfg, jp, tp = _hybrid(scan_impl)
+    batch = _batch(jcfg.vocab, seed=3)
+    jnew, jopt, jmet = _jax_step(jcfg, JA.AdamWConfig(**OPT))(jp, JA.adamw_init(jp),
+                                                               _jb(batch))
+    tnew, topt, tmet = make_train_step(tcfg, TA.AdamWConfig(**OPT))(
+        tp, TA.adamw_init(tp), _tb(batch))
+    assert _rel(tmet["loss"], jmet["loss"]) <= 1e-5
+    assert _rel(tmet["grad_norm"], jmet["grad_norm"]) <= 1e-5
+    _close_new_params(tnew, jnew, jopt["mu"], OPT["lr"])
+    _close_trees(topt["mu"], jopt["mu"])
+    _close_trees(topt["nu"], jopt["nu"])
+
+
+def test_hybrid_train_launcher_trains_and_resumes(tmp_path, capsys):
+    common = ["--arch", "hymba-1.5b", "--smoke", "--device", "cpu", "--ckpt-dir",
+              str(tmp_path), "--ckpt-every", "2", "--batch", "2", "--seq", "16"]
+    first = TT.main(common + ["--steps", "4"])
+    assert first["state"] == "done" and len(first["history"]) == 4
+    assert all(np.isfinite(first["history"]))
+    second = TT.main(common + ["--steps", "6"])
+    assert "[train] resumed from step 4" in capsys.readouterr().out
+    assert second["start_step"] == 4 and len(second["history"]) == 2
+    assert all(np.isfinite(second["history"]))
