@@ -7,6 +7,7 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --json
   PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b --device cpu --json
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-moe-3b-a800m --device cpu --json
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m --device cpu --json
 
 Port of ``repro.launch.serve`` with four more flags: ``--device`` (default
 ``cuda``; without a card it raises unless ``--device cpu``), ``--full-width``
@@ -14,8 +15,9 @@ Port of ``repro.launch.serve`` with four more flags: ``--device`` (default
 ``--attention-impl`` (``pallas`` routes prefill and decode attention through
 the CUDA kernels; ``xla`` is plain PyTorch) and, for the hybrid family,
 ``--scan-impl`` (the prefill scan: ``assoc`` through K4, ``chunked`` or
-``chunked_u`` through K3).  Hybrid prompts are exactly ``--prefill-len``
-tokens, as the engine requires for recurrent families.  The vlm and encdec
+``chunked_u`` through K3).  Hybrid and xlstm prompts are exactly
+``--prefill-len`` tokens, as the engine requires for recurrent families; the
+xlstm family reaches no kernel on either ``--attention-impl``.  The vlm and encdec
 families are refused with the engine's reason (``UNSERVED_FAMILIES``); they
 decode through ``repro_torch.models.decoding``.
 
