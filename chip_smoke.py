@@ -50,13 +50,20 @@ Phases, in order; any failure exits non-zero with its traceback:
                tokens are counted and left out of the 1e-5 checks (every
                token's MoE input is held).  The depth chains and the full
                depth are held to the control as for the other families.
+4b. xlstm    - xlstm-125m at full width and depth in f32, card against
+               CPU on the same params and tokens (B = 2, S = 256, then 8
+               decode steps): every layer on the same input logged, the
+               chain through the entry points held to 10x a control (the
+               CPU route, its input nudged one f32 step); no launch (the
+               family has no kernel route, in the reference either).
 5. serve     - ``repro_torch.launch.serve.main`` at full width in bf16 (8
                slots, 512-token prompts, 32 new tokens each): gemma-2b (K1,
                K2), hymba-1.5b with the default scan (K1, K4, K2) and with
                ``--scan-impl chunked`` (K1, K3, K2), 16 requests each, and
                phi3-mini-3.8b (K1, K2 at D = 96), 8 requests, and
                granite-moe-3b-a800m (K1, K2 at 24/8, D = 64; the MoE in
-               plain PyTorch), 16 requests; every
+               plain PyTorch), 16 requests, and xlstm-125m (no kernel:
+               every counter must stay at 0), 16 requests; every
                request must complete and every prefill/decode must have gone
                through the kernels (counters set to 0 before each run).
 5b. decode   - the families the engine does not serve (vlm, encdec) through
@@ -70,6 +77,14 @@ Phases, in order; any failure exits non-zero with its traceback:
                peak memory, whisper's encoder's share of the prefill.  Then,
                with the model loaded, phase 7's profiles of one prefill and
                one step (and of whisper's encoder alone).
+5c. window   - hymba-1.5b at full width and depth in bf16 in its long mode
+               (``window = cfg.long_window`` = 1024 slots): a windowed
+               prefill of B = 2 x 1536 tokens (past the window, S % 1024 =
+               512, so the reference's eviction fault R2 is on the path),
+               then 32 greedy ``decode_step(window=...)``: no K1 in the
+               prefill (the reference's rule), 32 K2 launches a step, every
+               one at lengths 1024, a 1024-slot cache, finite tokens;
+               prefill and step ms, peak memory; one of each profiled.
 6. timing    - each kernel at its serve shapes: its device time (profiler;
                each op at its mean over the records a session kept), the same
                from CUDA events around calls queued behind a sleep (a
@@ -81,9 +96,11 @@ Phases, in order; any failure exits non-zero with its traceback:
                exps on the SFU at the card's max SM clock); each kernel's
                time over the library's and its bound over its time; K1 and
                K2 also at phi3-mini's, nemotron-4's and granite-moe's heads,
-               and at phase 5b's shapes (phi-3-vision, whisper).
+               and at phase 5b's shapes (phi-3-vision, whisper), and K2 at
+               phase 5c's step (B = 2, 1024 valid slots of 1024).
 7. breakdown - profiles of the prefill (1 x 512 tokens) and the decode tick
-               of gemma-2b, hymba-1.5b and granite-moe-3b-a800m in the bf16
+               of gemma-2b, hymba-1.5b, granite-moe-3b-a800m and xlstm-125m
+               in the bf16
                serve engine: the top six device ops and the port's kernels
                wherever they rank; for granite-moe also the device time of
                its MoE layers, router and expert FFNs (the rest of the
@@ -105,7 +122,12 @@ Phases, in order; any failure exits non-zero with its traceback:
                tokens.  (c) the smoke config with checkpoints: a crash at
                step 6 (a checkpoint every 4), then a resume from step 4
                whose losses match an uninterrupted run's within 1e-6
-               relative.
+               relative.  (d) hymba-1.5b at full width in bf16, B=2,
+               S=512, remat, 4 steps on each training scan (``assoc``,
+               ``chunked``: the reference's differentiable scans, no K3 or
+               K4), and xlstm-125m, B=4, S=512, 4 steps: finite losses,
+               every leaf moved, ms/step and peak memory.  (e) (b) for
+               hymba-1.5b cut to 2 layers.
 
 The last three lines are the card's name and power limit, one JSON object
 with the per-kernel numbers, and ``{"ok": true, "device": {...}}``.
@@ -153,6 +175,7 @@ SERVE_RUNS = [
     ("phi3-mini-3.8b", ["--arch", "phi3-mini-3.8b", "--requests", "8"] + SERVE_COMMON),
     ("granite-moe-3b-a800m", ["--arch", "granite-moe-3b-a800m", "--requests", "16"]
      + SERVE_COMMON),
+    ("xlstm-125m", ["--arch", "xlstm-125m", "--requests", "16"] + SERVE_COMMON),
 ]
 # (arch, depth) of the full-width f32 parity runs; None keeps the published
 # depth.  phi3-mini's 32 layers are cut to 4: its K1 and K2 at D = 96 are
@@ -168,6 +191,12 @@ PARITY_RUNS = [("gemma-2b", None), ("hymba-1.5b", None), ("phi3-mini-3.8b", 4),
 # batch, seq) of the card-against-CPU step, and its tolerances
 TRAIN_FULL = ("gemma-2b", 4, 512, 4)
 TRAIN_PARITY = ("gemma-2b", 2, 1, 128)
+# phase 8's other full-width bf16 runs: (arch, batch, seq, steps, remat,
+# scan_impl): hymba-1.5b on each training scan, then xlstm-125m (no remat in
+# the reference's xlstm stack); and the hybrid card-against-CPU step
+TRAIN_MORE = [("hymba-1.5b", 2, 512, 4, True, "assoc"), ("hymba-1.5b", 2, 512, 4, True, "chunked"),
+              ("xlstm-125m", 4, 512, 4, False, None)]
+TRAIN_PARITY_HYBRID = ("hymba-1.5b", 2, 1, 128)
 TRAIN_REL_TOL = 1e-5  # loss and grad norm, card against CPU
 TRAIN_LEAF_TOL = 2e-4  # moments and new params: of the leaf's max |x|
 RESUME_REL_TOL = 1e-6  # resumed losses against the uninterrupted run's
@@ -178,6 +207,13 @@ RESUME_REL_TOL = 1e-6  # resumed losses against the uninterrupted run's
 # context (arXiv:2212.04356), which also sizes its decoder position table
 DECODE_RUNS = [("phi-3-vision-4.2b", 8, 512, 1152), ("whisper-large-v3", 8, 192, 448)]
 DECODE_STEPS = 32
+# the window decode phase (5c): (arch, batch, prompt tokens) of hymba-1.5b in
+# its long_500k mode (a circular cache of cfg.long_window = 1024 slots): the
+# prompt runs past the window with S % 1024 = 512, so the reference's
+# eviction fault (ROADMAP.md R2) is on the path; then DECODE_STEPS steps
+WINDOW_RUN = ("hymba-1.5b", 2, 1536)
+# xlstm-125m card against CPU in f32 (phase 4b): (arch, batch, prompt, decode steps)
+XLSTM_PARITY = ("xlstm-125m", 2, 256, 8)
 # the serve run whose counts stand in the kernels JSON as each kernel's launches
 MAIN_PATH = {"flash_attention": "gemma-2b", "decode_attention": "gemma-2b",
              "ssm_scan": "hymba-1.5b assoc", "ssm_scan_fused": "hymba-1.5b chunked"}
@@ -317,7 +353,7 @@ def expected_launches(cfg, prefills: int, decode_steps: int) -> dict:
     from repro_torch.kernels import ops
 
     want = dict.fromkeys(ops.KERNELS, 0)
-    if cfg.attention_impl != "pallas":
+    if cfg.attention_impl != "pallas" or cfg.family == "ssm":  # xlstm reaches no kernel
         return want
     want["flash_attention"] = cfg.n_layers * prefills
     want["decode_attention"] = cfg.n_layers * decode_steps
@@ -1182,9 +1218,10 @@ def phase_serve(label: str, args: list) -> dict:
         f"{summary['tokens_per_s']} tokens/s; latency p50 {summary['latency_p50_s']:.3f}s "
         f"p99 {summary['latency_p99_s']:.3f}s; {summary['prefills']} prefills, "
         f"{summary['decode_ticks']} decode ticks")
-    log("serve", f"{label} wrapper calls (launches) on the main path: {launches} "
+    log("serve", f"{label} wrapper calls (launches) on the main path: {launches} " + (
+        "(the xlstm family reaches no kernel, as in the reference)" if cfg.family == "ssm" else
         f"(= prefills x {cfg.n_layers} for the prefill kernels, decode ticks x {cfg.n_layers} "
-        "for decode_attention)")
+        "for decode_attention)"))
     torch.cuda.empty_cache()
     return {"summary": summary, "launches": launches, "requests": n_req}
 
@@ -1301,6 +1338,201 @@ def phase_decode(arch: str, b: int, prompt: int, max_len: int) -> dict:
     del params, cache, logits, inputs
     torch.cuda.empty_cache()
     return out
+
+
+def phase_window(arch: str, b: int, prompt: int) -> dict:
+    """The sliding-window mode's main path: ``decoding.prefill`` of ``b``
+    prompts of ``prompt`` tokens with ``window = cfg.long_window``, then
+    DECODE_STEPS greedy ``decode_step(window=...)`` on the circular cache, at
+    full width and depth in bf16.  Counters set to 0 just before the
+    prefill, read after it and after the steps: the windowed prefill takes
+    no K1 (the reference's rule: K1 only without a window) and one scan
+    kernel a layer; each step takes n_layers K2 launches, every one with
+    every row's length at the window (the cache is full).  Then one prefill
+    and one step profiled."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import decoding as DEC
+    from repro_torch.models.params import count_params
+    from repro_torch.steps import init_model
+
+    n_steps = DECODE_STEPS
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg = get_config(arch, attention_impl="pallas")
+    window, n = cfg.long_window, cfg.n_layers
+    max_len = prompt + n_steps
+    defs, params = init_model(cfg, seed=0, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    toks = torch.randint(1, cfg.vocab, (b, prompt), generator=g, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+
+    decode, lengths = ops.decode_attention, []
+
+    def recording(q, ck, cv, lens):  # K2's lengths, read after the run
+        lengths.append(lens)
+        return decode(q, ck, cv, lens)
+
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    logits, cache = DEC.prefill(params, cfg, {"tokens": toks}, max_len=max_len, window=window)
+    nxt = logits.argmax(-1)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    after_prefill = ops.launches()
+    finite = torch.isfinite(logits).all()
+    out_toks = []
+    ops.decode_attention = recording
+    try:
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            logits, cache = DEC.decode_step(params, cfg, cache, nxt, window=window)
+            nxt = logits.argmax(-1)
+            finite &= torch.isfinite(logits).all()
+            out_toks.append(nxt)
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        ops.decode_attention = decode
+    launches = ops.launches()
+    out_toks = torch.cat(out_toks, dim=1)
+    want = dict(expected_launches(cfg, 1, 0), flash_attention=0)
+    if after_prefill != want:
+        raise AssertionError(f"window {arch}: prefill launches {after_prefill}, want {want}")
+    want = dict(expected_launches(cfg, 1, n_steps), flash_attention=0)
+    if launches != want:
+        raise AssertionError(f"window {arch}: launches {launches}, want {want}")
+    lens = torch.stack(lengths).cpu()
+    if tuple(lens.shape) != (n * n_steps, b) or not bool((lens == window).all()):
+        raise AssertionError(f"window {arch}: K2 lengths {lens.unique().tolist()} in "
+                             f"{tuple(lens.shape)} calls x rows, want all {window}")
+    if tuple(cache["k"].shape) != (n, b, window, cfg.n_kv_heads, cfg.resolved_head_dim):
+        raise AssertionError(f"window {arch}: cache K {tuple(cache['k'].shape)}")
+    if not bool(finite) or not bool(((out_toks >= 0) & (out_toks < cfg.vocab)).all()):
+        raise AssertionError(f"window {arch}: logits finite {bool(finite)}, tokens "
+                             f"in [{int(out_toks.min())}, {int(out_toks.max())}]")
+    if cache["pos"].tolist() != [prompt + n_steps] * b:
+        raise AssertionError(f"window {arch}: pos {cache['pos'].tolist()} after {n_steps} steps")
+    peak = torch.cuda.max_memory_allocated()
+    kv = cache["k"].numel() * cache["k"].element_size() * 2
+    out = {"launches": launches, "prefill_ms": prefill_ms, "step_ms": decode_ms / n_steps,
+           "tokens_per_s": b * n_steps / (decode_ms / 1e3), "peak_bytes": peak}
+    log("window", f"{arch} {cfg.dtype} full width and depth ({count_params(defs) / 1e9:.3f}B "
+        f"params, {n} layers), window {window}: B={b}, {prompt}-token prompts (S % {window} = "
+        f"{prompt % window}: the first step evicts position {prompt - window + prompt % window}, "
+        f"as the reference does, not the oldest, {prompt - window}); circular K/V cache of "
+        f"{cache['k'].shape[2]} slots ({kv / 1e9:.3f} GB); init {init_s:.1f}s")
+    log("window", f"{arch}: windowed prefill {prefill_ms:.2f} ms, {n_steps} greedy decode steps "
+        f"{decode_ms:.2f} ms = {out['step_ms']:.2f} ms a step, {out['tokens_per_s']:.1f} "
+        f"tokens/s; peak memory {peak / 2**30:.2f} GiB ({peak} bytes); {b} x {n_steps} finite "
+        f"tokens, first row {out_toks[0, :8].tolist()}...")
+    log("window", f"{arch} launches: {after_prefill} after the prefill (no K1 with a window), "
+        f"{launches} after the steps (= {n} K2 a step), every K2 call at lengths {window}")
+    with torch.no_grad():
+        prof = {"prefill": _profile(f"{arch} windowed prefill (B={b}, S={prompt})",
+                                    lambda: DEC.prefill(params, cfg, {"tokens": toks},
+                                                        max_len=max_len, window=window)),
+                "decode": _profile(f"{arch} windowed decode step ({b} rows, {window} slots)",
+                                   lambda: DEC.decode_step(params, cfg, cache, nxt,
+                                                           window=window))}
+    out["busy_ms"] = {k: v[0] for k, v in prof.items()}
+    out["wall_ms"] = {k: v[1] for k, v in prof.items()}
+    del params, cache, logits
+    torch.cuda.empty_cache()
+    return out
+
+
+def _nudged_xlstm(params: dict) -> dict:
+    """``_nudged`` for the xlstm family's list of blocks: block 0's norm scale
+    moved one f32 step up."""
+    import torch
+
+    scale = params["blocks"][0]["norm"]["scale"].clone()
+    scale[0] = torch.nextafter(scale[0], torch.full_like(scale[0], float("inf")))
+    first = {**params["blocks"][0], "norm": {**params["blocks"][0]["norm"], "scale": scale}}
+    return {**params, "blocks": [first] + params["blocks"][1:]}
+
+
+def phase_xlstm_parity() -> None:
+    """xlstm-125m at full width and depth in f32 (TF32 off, phase 1): the
+    card against the CPU on the same params and tokens.  The family has no
+    kernel route (the reference's xlstm reaches no Pallas call), so this is
+    the check that the card computes what the CPU computes.  Every layer on
+    the same input (the CPU's stream) is logged; the chain (prefill of B x S
+    tokens, then decode steps, through the entry points) is held to
+    CHAOS_FACTOR times a control: the CPU route with its input nudged by one
+    f32 step (``_nudged_xlstm``).  No kernel may launch."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import decoding as DEC
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as TF
+    from repro_torch.models import xlstm as XL
+    from repro_torch.models.params import count_params, tree_map
+    from repro_torch.steps import init_model
+
+    arch, b, s, n_dec = XLSTM_PARITY
+    cfg = get_config(arch, dtype="float32")
+    t0 = time.perf_counter()
+    defs, params = init_model(cfg, seed=0, device="cuda")
+    cpu = tree_map(lambda t: t.cpu(), params)
+    g = torch.Generator().manual_seed(1)
+    toks = torch.randint(1, cfg.vocab, (b, s), generator=g)
+    steps = torch.randint(1, cfg.vocab, (n_dec, b, 1), generator=g)
+
+    def chain(prm, dev):
+        out, cache = DEC.prefill(prm, cfg, {"tokens": toks.to(dev)}, max_len=s + n_dec)
+        got = [out.cpu()]
+        for tok in steps:
+            out, cache = DEC.decode_step(prm, cfg, cache, tok.to(dev))
+            got.append(out.cpu())
+        return got, cache
+
+    def block(kind, p, x):
+        if kind == "mlstm":
+            return x + XL.mlstm_forward(p, x, cfg)[0]
+        return XL.slstm_forward(p, x, cfg)[0]
+
+    ops.reset_launches()
+    with torch.no_grad():
+        card, card_cache = chain(params, "cuda")
+        want, cpu_cache = chain(cpu, "cpu")
+        control, _ = chain(_nudged_xlstm(cpu), "cpu")
+        # every layer on the same input: the CPU's stream
+        x = L.embed_tokens(cpu["embed"], toks, cfg)
+        layers = []
+        for kind, pc, pg in zip(TF.xlstm_layer_kinds(cfg), cpu["blocks"], params["blocks"]):
+            got = block(kind, pg, x.cuda()).cpu()
+            x = block(kind, pc, x)
+            layers.append(_rel(got, x))
+    if any(ops.launches().values()):
+        raise AssertionError(f"xlstm parity launched kernels: {ops.launches()}")
+    dk = max(_rel(c, w) for c, w in zip(card, want))
+    dc = max(_rel(c, w) for c, w in zip(control, want))
+    if dk > max(CHAOS_FACTOR * dc, PARITY_REL_TOL):
+        raise AssertionError(f"xlstm {arch}: card drifts {dk:.3e} from the CPU, more than "
+                             f"{CHAOS_FACTOR} x the control's {dc:.3e}")
+    state = max((_rel(c.cpu(), w), f"layer {i} {key}")
+                for i, (cb, wb) in enumerate(zip(card_cache["blocks"], cpu_cache["blocks"]))
+                for key, c in cb.items() for w in (wb[key],))
+    worst = max(range(len(layers)), key=layers.__getitem__)
+    log("parity", f"{arch} f32 ({count_params(defs) / 1e9:.3f}B params, {cfg.n_layers} layers: "
+        f"{TF.xlstm_layer_kinds(cfg).count('slstm')} sLSTM), B={b} S={s} + {n_dec} decode "
+        f"steps, card against CPU ({time.perf_counter() - t0:.1f}s): no kernel launched")
+    log("parity", f"{arch} same input, layer by layer: worst layer {worst} ("
+        f"{TF.xlstm_layer_kinds(cfg)[worst]}) err / max |x| {layers[worst]:.3e}; all: "
+        + ", ".join(f"{r:.1e}" for r in layers))
+    log("parity", f"{arch} chain through the entry points: logits drift (max err / max |logit|) "
+        f"card {dk:.3e}, control (CPU, input nudged one f32 step) {dc:.3e}, within "
+        f"{CHAOS_FACTOR} x, ok; worst state leaf after the steps {state[0]:.3e} ({state[1]})")
+    del params, cpu, card_cache
+    torch.cuda.empty_cache()
 
 
 def sfu_exp_rate() -> float:
@@ -1421,6 +1653,9 @@ def phase_timing(worst: dict, serves: dict, fresh: dict) -> list:
     rows.append(decode_row(8, 1024, 528, 8, 1, 256, "gemma-2b"))
     rows.append(flash_row(1, 512, 25, 5, 64, "hymba-1.5b"))
     rows.append(decode_row(8, 1024, 528, 25, 5, 64, "hymba-1.5b"))
+    # the window decode phase's step: B=2, a circular cache of 1024 slots,
+    # every slot valid after the wrap
+    rows.append(decode_row(2, 1024, 1024, 25, 5, 64, "hymba-1.5b window"))
     # the same at the head dims no earlier path ran: phi3-mini's (32/32,
     # D=96) and nemotron-4's (96/8, D=192), at the same serve shapes
     rows.append(flash_row(1, 512, 32, 32, 96, "phi3-mini-3.8b"))
@@ -1701,18 +1936,23 @@ def phase_breakdown(arch: str) -> None:
     log("breakdown", f"{arch} took {time.perf_counter() - t0:.1f}s")
 
 
-def train_full() -> dict:
-    """(a) the full-width bf16 run through the train loop."""
+def train_full(arch: str, b: int, s: int, steps: int, remat: bool = False,
+               scan_impl=None, part: str = "a") -> dict:
+    """(a) a full-width bf16 run through the train loop; no kernel may
+    launch (the hybrid block trains through its differentiable scans)."""
     import torch
 
     from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
     from repro_torch.launch import train as T
     from repro_torch.models.params import count_params, tree_leaves, tree_paths
     from repro_torch.models.transformer import model_defs
     from repro_torch.steps import init_model
 
-    arch, b, s, steps = TRAIN_FULL
     cfg = get_config(arch)
+    if scan_impl is not None:
+        cfg = with_scan(cfg, scan_impl)
+    before = ops.launches()
     # step 0's params, drawn as train() draws them (same seed, same device)
     init = [t.cpu() for t in tree_leaves(init_model(cfg, seed=0, device="cuda")[1])]
     torch.cuda.empty_cache()
@@ -1731,9 +1971,11 @@ def train_full() -> dict:
             stamps[-1] = time.perf_counter()  # the check is not a step
 
     t0 = time.perf_counter()
-    result = T.train(cfg, steps, b, s, remat=False, on_step=on_step, device="cuda")
+    result = T.train(cfg, steps, b, s, remat=remat, on_step=on_step, device="cuda")
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
+    if ops.launches() != before:
+        raise AssertionError(f"train {arch}: kernels launched {before} -> {ops.launches()}")
     for i, m in enumerate(history):
         if not all(map(math.isfinite, m.values())) or m["grad_norm"] <= 0:
             raise AssertionError(f"train {arch}: step {i + 1} metrics {m}")
@@ -1746,9 +1988,12 @@ def train_full() -> dict:
     bound_ms = (flops / BF16_FLOPS + adam_bytes / HBM_BYTES_PER_S) * 1e3
     losses = [round(m["loss"], 4) for m in history]
     gnorms = [round(m["grad_norm"], 4) for m in history]
-    log("train", f"a. {arch} full width {cfg.dtype} ({n} params), B={b} S={s}, {steps} steps, no "
-        f"remat: losses {losses}, grad norms {gnorms}; every param leaf moved in step 1")
-    log("train", f"a. {ms:.2f} ms/step over steps 2-{steps} = {b * s / ms * 1e3:.0f} tokens/s; "
+    what = f"{arch}" + (f" ({scan_impl} scan)" if scan_impl else "")
+    log("train", f"{part}. {what} full width {cfg.dtype} ({n} params), B={b} S={s}, {steps} "
+        f"steps, {'remat' if remat else 'no remat'}: losses {losses}, grad norms {gnorms}; "
+        f"every param leaf moved in step 1; no kernel launched")
+    log("train", f"{part}. {what} {ms:.2f} ms/step over steps 2-{steps} = "
+        f"{b * s / ms * 1e3:.0f} tokens/s; "
         f"peak memory {peak / 2**30:.2f} GiB ({peak} bytes); bound {bound_ms:.2f} ms "
         f"({flops / 1e12:.2f} TFLOP at {BF16_FLOPS / 1e12:.0f} TFLOP/s bf16 + AdamW "
         f"{adam_bytes / 1e9:.2f} GB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s), share "
@@ -1820,7 +2065,7 @@ def _parity_faults(run: dict, cpu: dict, lr: float) -> tuple:
     return faults, worst
 
 
-def train_parity() -> dict:
+def train_parity(arch: str, layers: int, b: int, s: int, part: str = "b") -> dict:
     """(b) one f32 step on the card and one on the CPU from the same params
     (the reference's draw with wq and wk tamed, ``_tame``), held by
     ``_parity_faults``.  TF32 is off (phase 1).  The gate must also reject
@@ -1834,7 +2079,6 @@ def train_parity() -> dict:
     from repro_torch.optim import AdamWConfig, adamw_init
     from repro_torch.steps import init_model, make_train_step
 
-    arch, layers, b, s = TRAIN_PARITY
     cfg = get_config(arch, n_layers=layers, dtype="float32")
     opt_cfg = AdamWConfig(lr=1e-2, warmup_steps=1, total_steps=1)
     batch = SyntheticDataset(DataConfig(cfg.vocab, s, b, seed=0)).batch(0)
@@ -1865,15 +2109,15 @@ def train_parity() -> dict:
         raise AssertionError("train parity, card against CPU: " + "; ".join(faults))
     if not planted_faults:
         raise AssertionError("train parity: the gate let a step on half the tokens pass")
-    log("train", f"b. {arch} cut to {layers} layers, f32, wq/wk tamed, B={b} S={s}: one step "
+    log("train", f"{part}. {arch} cut to {layers} layers, f32, wq/wk tamed, B={b} S={s}: one step "
         f"on the card ({card['s']:.2f} s) and on the CPU ({cpu['s']:.2f} s): loss "
         f"{card['m']['loss']:.6f} / {cpu['m']['loss']:.6f}, grad norm "
         f"{card['m']['grad_norm']:.6f} / {cpu['m']['grad_norm']:.6f}")
-    log("train", "b. worst drift from the CPU (held to "
+    log("train", f"{part}. worst drift from the CPU (held to "
         f"{TRAIN_REL_TOL} relative, leaves {TRAIN_LEAF_TOL} of max |x|): "
         + "; ".join(f"{k} {v:.3e} {where}".rstrip() if isinstance(v, float) else
                     f"{k} {v} {where}" for k, (v, where) in worst.items()))
-    log("train", f"b. planted fault (the card's step with tokens {s // 2}-{s - 1} masked "
+    log("train", f"{part}. planted fault (the card's step with tokens {s // 2}-{s - 1} masked "
         f"out; loss {bad['m']['loss']:.6f}, grad norm {bad['m']['grad_norm']:.6f}) rejected: "
         f"{len(planted_faults)} faults, first: {planted_faults[0]}")
     return {"worst": {k: v[0] for k, v in worst.items()}, "planted_faults": len(planted_faults)}
@@ -1968,8 +2212,11 @@ def phase_train() -> dict:
 
     t0 = time.perf_counter()
     before = ops.launches()
-    out = {"full": train_full(), "breakdown": train_breakdown(), "parity": train_parity(),
-           "resume": train_resume()}
+    out = {"full": train_full(*TRAIN_FULL), "breakdown": train_breakdown(),
+           "parity": train_parity(*TRAIN_PARITY), "resume": train_resume()}
+    for arch, b, s, steps, remat, scan in TRAIN_MORE:
+        out[f"full {arch} {scan}"] = train_full(arch, b, s, steps, remat, scan, part="d")
+    out["parity hybrid"] = train_parity(*TRAIN_PARITY_HYBRID, part="e")
     if ops.launches() != before:
         raise AssertionError(f"train launched kernels: {before} -> {ops.launches()}")
     out["seconds"] = time.perf_counter() - t0
@@ -1991,6 +2238,9 @@ def main() -> int:
         t0 = time.perf_counter()
         phase_parity(arch, depth)
         log("parity", f"{arch} took {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    phase_xlstm_parity()
+    log("parity", f"{XLSTM_PARITY[0]} took {time.perf_counter() - t0:.1f}s")
     serves = {}
     for label, args in SERVE_RUNS:
         t0 = time.perf_counter()
@@ -2001,9 +2251,12 @@ def main() -> int:
         serves[f"decode {arch}"] = phase_decode(arch, b, prompt, max_len)
         log("decode", f"{arch} took {time.perf_counter() - t0:.1f}s with init")
     t0 = time.perf_counter()
+    serves[f"window {WINDOW_RUN[0]}"] = phase_window(*WINDOW_RUN)
+    log("window", f"{WINDOW_RUN[0]} took {time.perf_counter() - t0:.1f}s with init")
+    t0 = time.perf_counter()
     kernels = phase_timing(worst, serves, fresh)
     log("timing", f"phase took {time.perf_counter() - t0:.1f}s")
-    for arch in ("gemma-2b", "hymba-1.5b", "granite-moe-3b-a800m"):
+    for arch in ("gemma-2b", "hymba-1.5b", "granite-moe-3b-a800m", "xlstm-125m"):
         phase_breakdown(arch)
     phase_train()
     log("done", f"all phases passed in {time.perf_counter() - t_start:.1f}s")

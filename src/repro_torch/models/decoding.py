@@ -31,7 +31,7 @@ into the cache it is given, in place, and returns that cache with a new
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -128,12 +128,13 @@ def _prefill_xlstm(params: Params, cfg: ModelConfig, batch_inputs: Dict[str, tor
 
 
 def _decode_block(p: Params, x: torch.Tensor, layer: Dict[str, torch.Tensor],
-                  pos: torch.Tensor, write_pos: torch.Tensor, cfg: ModelConfig
+                  pos: torch.Tensor, cfg: ModelConfig, write_pos: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One decoder block for one new token.  ``layer`` is the layer's slice
     of the cache; its K/V are written in place (the same new row on every
-    call), its recurrent state and cross K/V are only read.  Returns (x, new
-    recurrent state), the state empty but for hybrid.  The moe block routes
+    call) at slot ``write_pos`` (default ``pos``), its recurrent state and
+    cross K/V are only read.  Returns (x, new recurrent state), the state
+    empty but for hybrid.  The moe block routes
     the B tokens as B groups of one (no drops); its aux is discarded."""
     xn = L.apply_norm(p["ln_attn"], x, cfg.norm)
     attn_out, _ = L.attn_decode(p["attn"], xn, layer["k"], layer["v"], pos, cfg,
@@ -167,8 +168,8 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Dict[str, Any],
     x = L.embed_tokens(params["embed"], tokens, cfg)
     for li in range(cfg.n_layers):
         layer = {key: t[li] for key, t in cache.items() if key != "pos"}
-        x, state = _decode_block(layer_params(params["blocks"], li), x, layer, pos, write_pos,
-                                 cfg)
+        x, state = _decode_block(layer_params(params["blocks"], li), x, layer, pos, cfg,
+                                 write_pos)
         for key, t in state.items():
             cache[key][li] = t
     new_cache = dict(cache)
