@@ -203,6 +203,22 @@ def test_prefill_and_decode_match_jax_at_head_dim_96(jimpl, timpl):
     _check_prefill_and_decode(jcfg, tcfg, jp, tp, seed=18)
 
 
+@pytest.mark.parametrize("arch", ["gemma-2b", "hymba-1.5b"])
+def test_unrolled_layers_match_jax(arch):
+    """``layer_impl="unroll"``: ``blocks`` is a list of per-layer params in
+    both packages; prefill, decode and the training loss match."""
+    jcfg, tcfg, jp, tp = _model(arch, layer_impl="unroll")
+    assert isinstance(jp["blocks"], list) and isinstance(tp["blocks"], list)
+    _check_prefill_and_decode(jcfg, tcfg, jp, tp, seed=19)
+    rng = np.random.default_rng(19)
+    batch = {"tokens": rng.integers(0, jcfg.vocab, (2, 12)).astype(np.int32),
+             "targets": rng.integers(0, jcfg.vocab, (2, 12)).astype(np.int32),
+             "mask": np.ones((2, 12), np.float32)}
+    want, _ = JTF.forward_train(jp, jcfg, {k: jnp.asarray(v) for k, v in batch.items()})
+    got, _ = TTF.forward_train(tp, tcfg, {k: torch.from_numpy(v) for k, v in batch.items()})
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
+
+
 def test_prefill_truncates_to_the_cache_when_the_prompt_fills_it():
     jcfg, tcfg, jp, tp = _model()
     toks = np.random.default_rng(17).integers(1, jcfg.vocab, size=(1, 20)).astype(np.int32)

@@ -247,7 +247,7 @@ def test_forward_train_loss_and_grads_match_jax():
     ttotal, tm = TTF.forward_train(tp, tcfg, _tb(batch))
     ttotal.backward()
     np.testing.assert_allclose(float(ttotal.detach()), float(jtotal), rtol=1e-5)
-    np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]), rtol=1e-5)
+    np.testing.assert_allclose(float(tm["loss"].detach()), float(jm["loss"]), rtol=1e-5)
     assert tm["aux"].dtype == torch.float32 and float(tm["aux"]) == float(jm["aux"]) == 0.0
     _close_trees(tree_map(lambda t: t.grad, tp), jgrads)
 
