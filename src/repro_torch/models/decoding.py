@@ -39,9 +39,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as SSM
 from repro_torch.models import xlstm as XL
-from repro_torch.models.transformer import (_apply_block, _embed_inputs, _ffn, check_family,
-                                            encoder_output, layer_params, mix,
-                                            xlstm_layer_kinds)
+from repro_torch.models.transformer import (_apply_block, _embed_inputs, _ffn, _run_xlstm,
+                                            check_family, encoder_output, layer_params,
+                                            mix, xlstm_layer_kinds)
 
 Params = Dict[str, Any]
 
@@ -114,14 +114,7 @@ def _prefill_xlstm(params: Params, cfg: ModelConfig, batch_inputs: Dict[str, tor
                    ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     x = L.embed_tokens(params["embed"], batch_inputs["tokens"], cfg)
     b, s, _ = x.shape
-    states = []
-    for kind, p in zip(xlstm_layer_kinds(cfg), params["blocks"]):
-        if kind == "mlstm":
-            out, st = XL.mlstm_forward(p, x, cfg)
-            x = x + out
-        else:
-            x, st = XL.slstm_forward(p, x, cfg)
-        states.append(st)
+    x, states = _run_xlstm(params, x, cfg)
     x = L.apply_norm(params["ln_f"], x[:, -1:], cfg.norm)
     pos = torch.full((b,), s, dtype=torch.int32, device=x.device)
     return L.unembed(params["embed"], x, cfg), {"blocks": states, "pos": pos}

@@ -2,9 +2,10 @@
 cross, for prefill and decode), MLPs, embedding, learned position tables.
 
 Port of ``repro.models.layers`` (not its blockwise attention, which is
-refused with or without a window), with the same convention: ``<layer>_defs(cfg)`` returns a dict of ParamDef and
-``<layer>(params, x, ...)`` applies it.  Softmax and norms run in f32 and
-cast back to the activation dtype, as in the reference.
+refused with or without a window), with the same convention:
+``<layer>_defs(cfg)`` returns a dict of ParamDef and ``<layer>(params, x,
+...)`` applies it.  Softmax and norms run in f32 and cast back to the
+activation dtype, as in the reference.
 """
 from __future__ import annotations
 

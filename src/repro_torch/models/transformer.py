@@ -279,7 +279,7 @@ def forward_train(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tenso
 
     auxs = []
     if cfg.family == "ssm":
-        x = _run_xlstm(params, x, cfg)
+        x, _ = _run_xlstm(params, x, cfg)
     else:
         for lp in unbind_layers(params["blocks"]):
             x, aux = checkpoint(block, lp, x, use_reentrant=False) if remat else block(lp, x)
@@ -295,12 +295,16 @@ def forward_train(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tenso
     return loss + 0.01 * aux, {"loss": loss, "aux": aux}
 
 
-def _run_xlstm(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """The xlstm stack over the whole sequence, its decode states dropped:
-    the mLSTM's residual is added here, the sLSTM adds its own."""
+def _run_xlstm(params: Params, x: torch.Tensor, cfg: ModelConfig
+               ) -> Tuple[torch.Tensor, List[Dict[str, torch.Tensor]]]:
+    """The xlstm stack over the whole sequence: (x, each layer's decode
+    state).  The mLSTM's residual is added here, the sLSTM adds its own."""
+    states = []
     for kind, p in zip(xlstm_layer_kinds(cfg), params["blocks"]):
         if kind == "mlstm":
-            x = x + XL.mlstm_forward(p, x, cfg)[0]
+            out, st = XL.mlstm_forward(p, x, cfg)
+            x = x + out
         else:
-            x = XL.slstm_forward(p, x, cfg)[0]
-    return x
+            x, st = XL.slstm_forward(p, x, cfg)
+        states.append(st)
+    return x, states
