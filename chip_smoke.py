@@ -128,6 +128,26 @@ Phases, in order; any failure exits non-zero with its traceback:
                K4), and xlstm-125m, B=4, S=512, 4 steps: finite losses,
                every leaf moved, ms/step and peak memory.  (e) (b) for
                hymba-1.5b cut to 2 layers.
+9. bridge    - the ``jaxlocal`` resource manager of the port
+               (``repro_torch.core.backends.jaxlocal``) on the card, driven
+               only through its slurm REST routes (``RestServer.handle``
+               with the Bearer header and the paths the Bridge's adapter
+               sends): a serve job of gemma-2b at full width in bf16 through
+               K1 and K2 (``config_overrides`` restore its published config,
+               ``attention_impl`` pallas; phase 5's 8 slots, 512-token
+               prompts and 1024-slot cache), healthy, then 16 invokes of 32
+               tokens from 8 threads: every one 32 tokens served by the
+               job, K1 launches = 18 x 16, K2 a multiple of 18 and at least
+               18 x 31 (counters set to 0 before the submit); tokens/s and
+               p50/p99 latency over REST beside phase 5's, and the time of
+               one ``GET /health`` (the REST layer alone); then DELETE and
+               CANCELLED.  A train job at full width (B=4, S=512, 4 steps,
+               no remat, no checkpoint): COMPLETED, finite losses, no
+               launch.  The smoke config's crash at step 6 (a checkpoint
+               every 4): FAILED with the job's reason, then a resubmission
+               that starts at step 4 with losses within 1e-6 relative of an
+               uninterrupted job's.  A FAILED job, another HTTP status or a
+               request past ``BRIDGE_TIMEOUT`` fails the phase.
 
 The last three lines are the card's name and power limit, one JSON object
 with the per-kernel numbers, and ``{"ok": true, "device": {...}}``.
@@ -214,6 +234,18 @@ DECODE_STEPS = 32
 WINDOW_RUN = ("hymba-1.5b", 2, 1536)
 # xlstm-125m card against CPU in f32 (phase 4b): (arch, batch, prompt, decode steps)
 XLSTM_PARITY = ("xlstm-125m", 2, 256, 8)
+# phase 9 (bridge): the jaxlocal twin driven over its slurm REST routes.
+# Serve: (arch, requests, client threads, new tokens each) at phase 5's
+# shapes (BRIDGE_SERVE_SHAPE: slots, prompt tokens, cache); train: (arch,
+# batch, seq, steps) at full width, no remat, no checkpoint; then the smoke
+# config's crash (at step 6, a checkpoint every 4) and resume
+BRIDGE_SERVE = ("gemma-2b", 16, 8, 32)
+BRIDGE_SERVE_SHAPE = (8, 512, 1024)
+BRIDGE_TRAIN = ("gemma-2b", 4, 512, 4)
+BRIDGE_TOKEN = "chip-smoke-token"
+SLURM = "/slurm/v0.0.37"
+# the slowest a REST request or job may take before the phase fails (s)
+BRIDGE_TIMEOUT = 300
 # the serve run whose counts stand in the kernels JSON as each kernel's launches
 MAIN_PATH = {"flash_attention": "gemma-2b", "decode_attention": "gemma-2b",
              "ssm_scan": "hymba-1.5b assoc", "ssm_scan_fused": "hymba-1.5b chunked"}
@@ -2282,6 +2314,238 @@ def phase_train() -> dict:
     return out
 
 
+def full_width_overrides(arch: str, **extra) -> dict:
+    """A job script's ``config_overrides`` that turn ``get_smoke_config(arch)``
+    into the published config (plus ``extra``): every field that differs."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, get_smoke_config
+
+    full, smoke = get_config(arch, **extra), get_smoke_config(arch)
+    over = {f.name: getattr(full, f.name) for f in dataclasses.fields(full)
+            if getattr(full, f.name) != getattr(smoke, f.name)}
+    if get_smoke_config(arch, **json.loads(json.dumps(over))) != full:
+        raise AssertionError(f"bridge: {arch}'s overrides do not restore its config")
+    return over
+
+
+class Slurm:
+    """The twin's slurm REST routes, called as the Bridge's adapter calls
+    them: ``RestServer.handle`` with the Bearer header.  Any status outside
+    ``want`` fails the phase."""
+
+    def __init__(self, server, token: str):
+        self.server, self.headers = server, {"Authorization": f"Bearer {token}"}
+
+    def __call__(self, method: str, path: str, body=None, want=(200,)):
+        r = self.server.handle(method, SLURM + path, body, self.headers)
+        if r.status not in want:
+            raise AssertionError(f"bridge: {method} {path} -> HTTP {r.status} {r.json}")
+        return r
+
+    def submit(self, spec: dict, **job) -> str:
+        return str(self("POST", "/job/submit", {"script": json.dumps(spec), "job": job,
+                                                "params": {}}).json["job_id"])
+
+    def wait(self, jid: str, states, timeout: float = BRIDGE_TIMEOUT) -> dict:
+        """Poll ``GET /job/{id}`` until its state is in ``states``; a job
+        that ends in another state, or takes longer, fails the phase with
+        the job's reason."""
+        deadline = time.perf_counter() + timeout
+        while True:
+            rec = self("GET", f"/job/{jid}").json["jobs"][0]
+            if rec["job_state"] in states:
+                return rec
+            if rec["job_state"] in ("COMPLETED", "FAILED", "CANCELLED") \
+                    or time.perf_counter() > deadline:
+                raise AssertionError(f"bridge: job {jid} is {rec['job_state']}, want {states}; "
+                                     f"reason: {rec['state_reason']!r}")
+            time.sleep(0.01)
+
+
+def bridge_serve(rest: Slurm, arch: str, over: dict, requests: int, threads: int,
+                 new: int, shape: tuple, seed: int = 0) -> dict:
+    """A serve job: submit, poll ``/health`` until 200, ``requests`` invokes
+    from ``threads`` threads (every one must return ``new`` tokens, served
+    by the job), then ``DELETE`` and poll until CANCELLED.  The launch
+    counters are set to 0 just before the submit and read once the last
+    request returned."""
+    import threading
+
+    import numpy as np
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import ops
+
+    slots, prompt, max_len = shape
+    vocab = get_smoke_config(arch, **over).vocab
+    rng = np.random.RandomState(seed)
+    prompts = [[int(t) for t in rng.randint(1, vocab, size=prompt)] for _ in range(requests)]
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    jid = rest.submit({"mode": "serve", "arch": arch, "config_overrides": over,
+                       "max_batch": slots, "prefill_len": prompt, "max_len": max_len,
+                       "seed": seed})
+    deadline = t0 + BRIDGE_TIMEOUT
+    while rest("GET", f"/job/{jid}/health", want=(200, 503)).status != 200:
+        rec = rest("GET", f"/job/{jid}").json["jobs"][0]
+        if rec["job_state"] not in ("PENDING", "RUNNING") or time.perf_counter() > deadline:
+            raise AssertionError(f"bridge: serve job {jid} never became healthy: "
+                                 f"{rec['job_state']}, reason {rec['state_reason']!r}")
+        time.sleep(0.01)
+    ready_s = time.perf_counter() - t0
+    todo = list(range(requests))
+    lock = threading.Lock()
+    lat, errors, replies = [], [], {}
+
+    def client():
+        while True:
+            with lock:
+                if not todo:
+                    return
+                i = todo.pop(0)
+            t = time.perf_counter()
+            try:
+                body = rest("POST", f"/job/{jid}/invoke",
+                            {"prompt": prompts[i], "max_new_tokens": new}).json
+            except AssertionError as e:
+                errors.append(str(e))
+                continue
+            with lock:
+                lat.append(time.perf_counter() - t)
+                replies[i] = body
+
+    pool = [threading.Thread(target=client, daemon=True) for _ in range(threads)]
+    t1 = time.perf_counter()
+    for t in pool:
+        t.start()
+    for t in pool:
+        t.join(timeout=max(deadline - time.perf_counter(), 1))
+    wall = time.perf_counter() - t1
+    launches = ops.launches()
+    if any(t.is_alive() for t in pool) or errors:
+        rec = rest("GET", f"/job/{jid}").json["jobs"][0]
+        raise AssertionError(f"bridge: {len(replies)}/{requests} requests returned; "
+                             f"errors {errors[:3]}; job {jid} {rec['job_state']}, "
+                             f"reason {rec['state_reason']!r}")
+    bad = [i for i, b in replies.items() if len(b["tokens"]) != new or b["served_by"] != jid]
+    if bad:
+        raise AssertionError(f"bridge: requests {bad} returned {[replies[i] for i in bad]}")
+    t = time.perf_counter()
+    for _ in range(200):  # the REST layer's own cost: a route that runs no model
+        rest("GET", f"/job/{jid}/health")
+    route_us = (time.perf_counter() - t) / 200 * 1e6
+    rest("DELETE", f"/job/{jid}")
+    rest.wait(jid, ("CANCELLED",))
+    lat.sort()
+    return {"job": jid, "ready_s": ready_s, "wall_s": wall, "launches": launches,
+            "route_us": route_us,
+            "tokens": requests * new, "tokens_per_s": requests * new / wall,
+            "latency_p50_s": lat[min(len(lat) - 1, int(len(lat) * 0.50))],
+            "latency_p99_s": lat[min(len(lat) - 1, int(len(lat) * 0.99))]}
+
+
+def bridge_train(rest: Slurm, cluster, store, spec: dict, name: str, want="COMPLETED") -> dict:
+    """A train job: submit, wait for ``want``; for a COMPLETED job, its
+    ``train.out`` (the dialect has no download route: read from the
+    cluster's job, as the Bridge's tests do) and its loss history (uploaded
+    under the workdir)."""
+    from repro_torch.core import ObjectStore
+
+    t0 = time.perf_counter()
+    jid = rest.submit(spec, OutputFileName="train.out")
+    rec = rest.wait(jid, (want,))
+    out = {"job": jid, "wall_s": time.perf_counter() - t0, "record": rec}
+    if want == "COMPLETED":
+        out["result"] = json.loads(cluster.get(jid).outputs["train.out"])
+        bucket, prefix = ObjectStore.parse_ref(spec["workdir"])
+        out["history"] = json.loads(store.get(bucket, f"{prefix}/history_{jid}.json"))
+        if not all(map(math.isfinite, out["history"])) or out["result"]["state"] != "done":
+            raise AssertionError(f"bridge: train {name}: {out['result']} {out['history']}")
+    return out
+
+
+def phase_bridge(serve_ref: dict) -> dict:
+    """Phase 9: the jaxlocal twin on the card, driven over its REST routes."""
+    import torch
+
+    from repro_torch.core import ObjectStore
+    from repro_torch.core.backends import jaxlocal as JX
+    from repro_torch.kernels import ops
+
+    store = ObjectStore()
+    cluster = JX.make_jaxlocal_cluster(store, slots=2)  # device "cuda"
+    rest = Slurm(JX.make_server(cluster, token=BRIDGE_TOKEN), BRIDGE_TOKEN)
+    out = {}
+    try:
+        arch, requests, threads, new = BRIDGE_SERVE
+        over = full_width_overrides(arch, attention_impl="pallas")
+        n_layers = over["n_layers"]
+        s = bridge_serve(rest, arch, over, requests, threads, new, BRIDGE_SERVE_SHAPE)
+        k1, k2 = s["launches"]["flash_attention"], s["launches"]["decode_attention"]
+        others = {k: v for k, v in s["launches"].items()
+                  if k not in ("flash_attention", "decode_attention") and v}
+        if k1 != n_layers * requests or k2 % n_layers or k2 < n_layers * (new - 1) or others:
+            raise AssertionError(f"bridge: serve launches {s['launches']}, want flash_attention "
+                                 f"= {n_layers} x {requests}, decode_attention a multiple of "
+                                 f"{n_layers} and >= {n_layers} x {new - 1}")
+        ref = serve_ref["summary"]
+        log("bridge", f"serve: job {s['job']} {arch} full width {over['dtype']} pallas, healthy "
+            f"{s['ready_s']:.2f}s after submit; {requests} invokes x {new} tokens from "
+            f"{threads} threads over REST: {s['tokens']} tokens in {s['wall_s']:.4f}s = "
+            f"{s['tokens_per_s']:.2f} tokens/s, latency p50 {s['latency_p50_s']:.3f}s p99 "
+            f"{s['latency_p99_s']:.3f}s (phase 5's launch.serve, all {ref['requests']} "
+            f"submitted at once: {ref['tokens_per_s']} tokens/s, p50 "
+            f"{ref['latency_p50_s']:.3f}s p99 {ref['latency_p99_s']:.3f}s); launches "
+            f"{s['launches']} (= {requests} prefills x {n_layers}, {k2 // n_layers} decode "
+            f"ticks x {n_layers}); GET /health {s['route_us']:.1f} us a call on the live job; "
+            f"then DELETE: CANCELLED")
+        out["serve"] = s
+        torch.cuda.empty_cache()
+
+        arch, b, seq, steps = BRIDGE_TRAIN
+        before = ops.launches()
+        torch.cuda.reset_peak_memory_stats()
+        spec = {"arch": arch, "steps": steps, "batch": b, "seq": seq,
+                "config_overrides": full_width_overrides(arch), "workdir": "runs:bridge/full"}
+        t = bridge_train(rest, cluster, store, spec, "full width")
+        if ops.launches() != before or len(t["history"]) != steps:
+            raise AssertionError(f"bridge: train launches {before} -> {ops.launches()}, "
+                                 f"history {t['history']}")
+        rec = t["record"]
+        log("bridge", f"train: job {t['job']} {arch} full width bf16, B={b} S={seq}, {steps} "
+            f"steps, no remat: COMPLETED, losses {[round(x, 4) for x in t['history']]}, "
+            f"train.out {t['result']}; {rec['end_time'] - rec['start_time']:.2f}s on its worker "
+            f"(init included), {t['wall_s']:.2f}s submit to COMPLETED; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; no kernel launched")
+        out["train"] = t
+        torch.cuda.empty_cache()
+
+        base = {"arch": "gemma-2b", "steps": 10, "batch": 4, "seq": 64, "lr": 1e-2}
+        full = bridge_train(rest, cluster, store, dict(base, workdir="runs:bridge/whole"),
+                            "uninterrupted")
+        crash = dict(base, checkpoint_every=4, workdir="runs:bridge/crash")
+        failed = bridge_train(rest, cluster, store, dict(crash, crash_at_step=6), "crash",
+                              want="FAILED")
+        if "injected crash at step 6" not in failed["record"]["state_reason"]:
+            raise AssertionError(f"bridge: crash job {failed['record']}")
+        resumed = bridge_train(rest, cluster, store, crash, "resume")
+        want = full["history"][4:]
+        rel = max(abs(g - w) / abs(w) for g, w in zip(resumed["history"], want))
+        if (resumed["result"]["start_step"] != 4 or len(resumed["history"]) != 6
+                or rel > RESUME_REL_TOL):
+            raise AssertionError(f"bridge: resume {resumed['result']} {resumed['history']} vs "
+                                 f"uninterrupted {full['history']}")
+        log("bridge", f"crash: job {failed['job']} FAILED ({failed['record']['state_reason']}); "
+            f"job {resumed['job']} resumed from step {resumed['result']['start_step']}: losses "
+            f"of steps 5-10 within {rel:.2e} relative of job {full['job']}'s uninterrupted "
+            f"run ({[round(x, 4) for x in want]})")
+        out["resume_rel"] = rel
+    finally:
+        cluster.shutdown()
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     smi = phase_device()
@@ -2317,6 +2581,9 @@ def main() -> int:
     for arch in ("gemma-2b", "hymba-1.5b", "granite-moe-3b-a800m", "xlstm-125m"):
         phase_breakdown(arch)
     phase_train()
+    t0 = time.perf_counter()
+    phase_bridge(serves["gemma-2b"])
+    log("bridge", f"phase took {time.perf_counter() - t0:.1f}s")
     log("done", f"all phases passed in {time.perf_counter() - t_start:.1f}s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

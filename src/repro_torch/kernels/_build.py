@@ -17,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, List, Tuple
@@ -104,9 +105,22 @@ def build() -> Tuple[Path, str, float]:
     return lib, log, time.perf_counter() - t0
 
 
+_LOAD_LOCK = threading.Lock()
+
+
 @functools.lru_cache(maxsize=1)
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built at first call."""
+    """The loaded kernel library, built at first call.  ``lru_cache`` does
+    not serialise concurrent first calls: threads that all miss (two serve
+    replicas starting cold) would each run ``build`` into the same object
+    and temporary names.  The lock lets one build and load; the others wait
+    and take its library."""
+    with _LOAD_LOCK:
+        return _load()
+
+
+@functools.lru_cache(maxsize=1)
+def _load() -> ctypes.CDLL:
     path, _, _ = build()
     lib = ctypes.CDLL(str(path))
     for name, argtypes in SIGNATURES.items():

@@ -5,6 +5,10 @@ side runs its kernels in interpret mode, as tests/test_kernels.py does; on
 the CPU the port's wrappers run their plain versions (the CUDA kernels are
 held against those on the card by chip_smoke.py).
 """
+import threading
+import time
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -321,3 +325,43 @@ def test_build_needs_nvcc_and_import_builds_nothing(monkeypatch, tmp_path):
     for name in ("repro_ssm_scan_fwd", "repro_ssm_scan_fused_fwd"):
         assert name in _build.SIGNATURES
     assert "-gencode" in _build.NVCC_FLAGS and "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+def test_concurrent_cold_calls_build_the_library_once(monkeypatch):
+    """Two threads calling ``library()`` cold (two serve replicas starting at
+    once) run one build and get the same loaded library."""
+    builds = []
+
+    def slow_build():
+        builds.append(threading.get_ident())
+        time.sleep(0.2)  # the second caller arrives while the first builds
+        return _build.BUILD_DIR / "libfake.so", "", 0.2
+
+    def fake_cdll(path):
+        return types.SimpleNamespace(path=path, **{n: types.SimpleNamespace()
+                                                   for n in _build.SIGNATURES})
+
+    monkeypatch.setattr(_build, "build", slow_build)
+    monkeypatch.setattr(_build.ctypes, "CDLL", fake_cdll)
+    _build.library.cache_clear()
+    _build._load.cache_clear()
+    try:
+        start = threading.Barrier(2)
+        got = []
+
+        def call():
+            start.wait()
+            got.append(_build.library())
+
+        threads = [threading.Thread(target=call) for _ in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=10)
+        assert not any(t.is_alive() for t in threads)
+        assert len(builds) == 1, builds
+        assert len(got) == 2 and got[0] is got[1]
+        assert got[0].repro_flash_attention_fwd.restype is _build.ctypes.c_int
+    finally:
+        _build.library.cache_clear()
+        _build._load.cache_clear()
