@@ -141,7 +141,12 @@ Phases, in order; any failure exits non-zero with its traceback:
                18 x 31 (counters set to 0 before the submit); tokens/s and
                p50/p99 latency over REST beside phase 5's, and the time of
                one ``GET /health`` (the REST layer alone); then DELETE and
-               CANCELLED.  A train job at full width (B=4, S=512, 4 steps,
+               CANCELLED.  The same prompts then go through a
+               ``ServingEngine`` built directly on the same seed's params,
+               and each request's tokens over REST must equal its tokens
+               there (a prefill is one row and a decode tick always all 8
+               slots, so a request's arithmetic does not depend on its
+               slot or its neighbours).  A train job at full width (B=4, S=512, 4 steps,
                no remat, no checkpoint): COMPLETED, finite losses, no
                launch.  The smoke config's crash at step 6 (a checkpoint
                every 4): FAILED with the job's reason, then a resubmission
@@ -2439,10 +2444,29 @@ def bridge_serve(rest: Slurm, arch: str, over: dict, requests: int, threads: int
     rest.wait(jid, ("CANCELLED",))
     lat.sort()
     return {"job": jid, "ready_s": ready_s, "wall_s": wall, "launches": launches,
-            "route_us": route_us,
+            "route_us": route_us, "prompts": prompts,
+            "replies": [replies[i]["tokens"] for i in range(requests)],
             "tokens": requests * new, "tokens_per_s": requests * new / wall,
             "latency_p50_s": lat[min(len(lat) - 1, int(len(lat) * 0.50))],
             "latency_p99_s": lat[min(len(lat) - 1, int(len(lat) * 0.99))]}
+
+
+def engine_tokens(arch: str, over: dict, prompts: list, new: int, shape: tuple,
+                  seed: int = 0) -> list:
+    """Each prompt's greedy tokens from a ``ServingEngine`` built directly
+    as the serve job builds its own: the job script's config (through its
+    JSON), the same seed's params, slots and lengths; in prompt order."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.steps import init_model
+
+    slots, prompt, max_len = shape
+    cfg = get_smoke_config(arch, **json.loads(json.dumps(over)))
+    _, params = init_model(cfg, seed=seed, max_seq=max_len)
+    eng = ServingEngine(cfg, params, max_batch=slots, max_len=max_len, prefill_len=prompt)
+    rids = [eng.submit(p, max_new_tokens=new) for p in prompts]
+    out = eng.run_until_idle()
+    return [out[r] for r in rids]
 
 
 def bridge_train(rest: Slurm, cluster, store, spec: dict, name: str, want="COMPLETED") -> dict:
@@ -2500,6 +2524,19 @@ def phase_bridge(serve_ref: dict) -> dict:
             f"{s['launches']} (= {requests} prefills x {n_layers}, {k2 // n_layers} decode "
             f"ticks x {n_layers}); GET /health {s['route_us']:.1f} us a call on the live job; "
             f"then DELETE: CANCELLED")
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        direct = engine_tokens(arch, over, s["prompts"], new, BRIDGE_SERVE_SHAPE)
+        differ = [(i, next(j for j, (a, b) in enumerate(zip(got, want)) if a != b))
+                  for i, (got, want) in enumerate(zip(s["replies"], direct)) if got != want]
+        if differ:
+            raise AssertionError(f"bridge: {len(differ)} of {requests} requests over REST differ "
+                                 f"from the engine's run of the same prompts (request, first "
+                                 f"token that differs): {differ}")
+        log("bridge", f"serve: all {requests} requests' tokens over REST equal to a "
+            f"ServingEngine's on the same seed's params and prompts ("
+            f"{len({tuple(r) for r in direct})} distinct sequences; "
+            f"{time.perf_counter() - t:.2f}s with init)")
         out["serve"] = s
         torch.cuda.empty_cache()
 

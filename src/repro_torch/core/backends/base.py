@@ -1,17 +1,19 @@
 """Simulated external-cluster machinery: the server side of a resource manager.
 
 The port's own copy of the server half of ``repro.core.backends.base``: the
-canonical job states, ``ClusterJob``, the ``Payload`` contract, the echo
-serve loop and sleep payload, and ``SimulatedCluster`` -- a queue of jobs, a
-bounded set of execution slots, a scheduler thread that advances job
-states, the events version and ring that watch routes long-poll, and the
-serve-mode surface (health and invoke).  A REST dialect
-(``backends/slurm.py``) exposes it; ``backends/jaxlocal.py`` replaces the
-sleep payload with PyTorch training and serving runs.
+canonical job states, ``ClusterJob``, the ``Payload`` contract and
+``SimulatedCluster`` -- a queue of jobs, a bounded set of execution slots, a
+scheduler thread that advances job states, the events version and ring that
+watch routes long-poll, and the serve-mode surface (health and invoke).  A
+REST dialect (``backends/slurm.py``) exposes it; ``backends/jaxlocal.py``
+gives it its payload, PyTorch training and serving runs.
 
 What only the Bridge uses (``Capability``, ``ResourceAdapter``,
 ``resolve_adapter``, ``normalized_queue_load``, ``SubmitError``,
-``InvokeError``) stays in ``repro.core`` and is not copied.
+``InvokeError``) stays in ``repro.core`` and is not copied.  Nor are the
+reference's default payload (the sleep payload and its echo serve loop),
+power-off and the file staging area: a jaxlocal cluster always has its own
+payload, and its slurm dialect has no file routes.
 
 Canonical internal states (each dialect maps to its own vocabulary):
     QUEUED -> RUNNING -> {COMPLETED, FAILED, CANCELLED}
@@ -47,7 +49,7 @@ class ClusterJob:
     # cluster events version at this job's last state transition (watch/
     # long-poll support: lets a watcher ask "did THESE ids change since v?")
     events_stamp: int = 0
-    # files produced by the job, downloadable via the manager's API
+    # files produced by the job (a train job's ``train.out``)
     outputs: Dict[str, bytes] = field(default_factory=dict)
     # serve-mode jobs (long-lived replicas): the payload installs a request
     # handler once it can take traffic — health answers 200 iff the job is
@@ -71,80 +73,16 @@ class ClusterJob:
 Payload = Callable[[ClusterJob, "SimulatedCluster"], int]
 
 
-def serve_loop(job: ClusterJob, cluster: "SimulatedCluster") -> int:
-    """Long-lived serve-mode replica: install an echo handler and run until
-    cancelled.  Serve jobs NEVER auto-complete — walltime expiry must not be
-    mistaken for success on a replica whose whole point is staying up.
-
-    Chaos knobs (properties): ``CrashAfter`` fails the replica after N
-    seconds (handler removed first, so health goes 503 before FAILED);
-    ``ServeLatency`` adds per-request artificial service time.
-    """
-    latency = float(job.properties.get("ServeLatency", "0") or 0)
-
-    def handler(body: Any) -> Any:
-        if latency:
-            time.sleep(latency)
-        return {"echo": body, "served_by": job.id}
-
-    crash_after = float(job.properties.get("CrashAfter", "0") or 0)
-    deadline = time.time() + crash_after if crash_after > 0 else None
-    job.handler = handler
-    try:
-        while not job._cancel.is_set():
-            if deadline is not None and time.time() >= deadline:
-                job.handler = None
-                job.reason = "replica crashed (CrashAfter)"
-                return 1
-            time.sleep(0.005)
-        return -1
-    finally:
-        job.handler = None
-
-
-def sleep_payload(job: ClusterJob, cluster: "SimulatedCluster") -> int:
-    """Default black-box job: run for WallSeconds, optionally fail, write outputs."""
-    if job.properties.get("Serve", "") == "true":
-        return serve_loop(job, cluster)
-    dur = float(job.properties.get("WallSeconds", cluster.default_duration))
-    deadline = time.time() + dur
-    while time.time() < deadline:
-        if job._cancel.is_set():
-            return -1
-        time.sleep(min(0.005, max(deadline - time.time(), 0)))
-    # FailMe as a property fails the whole submission; as a param it fails
-    # one array index (params are the per-index channel)
-    if (job.properties.get("FailMe", "") == "true"
-            or job.params.get("FailMe", "") == "true"):
-        job.reason = "job script exited non-zero (FailMe)"
-        return 1
-    out_name = job.properties.get("OutputFileName", "job.out")
-    job.outputs[out_name] = (
-        f"job {job.id} ok\nscript_bytes={len(job.script)}\n"
-        f"params={sorted(job.params)}\n").encode()
-    err_name = job.properties.get("ErrorFileName", "")
-    if err_name:
-        job.outputs[err_name] = b""
-    return 0
-
-
 class SimulatedCluster:
     """Bounded-slot job executor with a scheduler thread."""
 
-    def __init__(self, name: str, slots: int = 4, default_duration: float = 0.05,
-                 payload: Optional[Payload] = None, id_prefix: str = "",
-                 start_numbering: int = 1000):
+    def __init__(self, name: str, payload: Payload, slots: int = 4,
+                 id_prefix: str = "", start_numbering: int = 1000):
         self.name = name
         self.slots = slots
-        self.default_duration = default_duration
-        self.payload = payload or sleep_payload
+        self.payload = payload
         self.id_prefix = id_prefix
         self.jobs: Dict[str, ClusterJob] = {}
-        # power_off(): the whole resource died — live jobs fail, nothing
-        # schedules, queue_load reports zero capacity
-        self.powered_off = False
-        # staged files visible to jobs (upload/download area; LSF-style)
-        self.files: Dict[str, bytes] = {}
         self._next_id = start_numbering
         self._lock = threading.RLock()
         # monotonically increasing events version: bumped (under the lock)
@@ -311,42 +249,9 @@ class SimulatedCluster:
 
     def queue_load(self) -> Dict[str, int]:
         with self._lock:
-            if self.powered_off:
-                # a dead resource has no schedulable capacity: slots=0 makes
-                # normalized_queue_load() return None, so planners skip it
-                return {"queued": 0, "running": 0, "slots": 0}
             q = sum(1 for j in self.jobs.values() if j.state == QUEUED)
             r = sum(1 for j in self.jobs.values() if j.state == RUNNING)
         return {"queued": q, "running": r, "slots": self.slots}
-
-    def power_off(self, reason: str = "resource powered off") -> None:
-        """Hard-kill the whole resource: every live job fails NOW (their
-        worker threads observe _cancel, but the terminal state is already
-        set and _run_job must not overwrite it) and nothing schedules until
-        ``power_on()``.  Chaos tests combine this with a FaultProfile
-        blackout on the REST facade to simulate a dead endpoint whose work
-        is really gone."""
-        with self._lock:
-            self.powered_off = True
-            for job in self.jobs.values():
-                if job.state not in TERMINAL:
-                    job.state = FAILED
-                    job.end_time = time.time()
-                    job.reason = reason
-                    job._cancel.set()
-                    self._bump_events(job)
-
-    def power_on(self) -> None:
-        with self._lock:
-            self.powered_off = False
-
-    def upload(self, name: str, data: bytes) -> None:
-        with self._lock:
-            self.files[name] = bytes(data)
-
-    def download(self, name: str) -> Optional[bytes]:
-        with self._lock:
-            return self.files.get(name)
 
     def shutdown(self) -> None:
         self._stop.set()
@@ -364,10 +269,9 @@ class SimulatedCluster:
                 # reap finished workers — the list must not grow with job count
                 self._threads = [t for t in self._threads if t.is_alive()]
                 running = sum(1 for j in self.jobs.values() if j.state == RUNNING)
-                free = 0 if self.powered_off else self.slots - running
                 to_start = [j for j in sorted(self.jobs.values(),
                                               key=lambda j: j.submit_time)
-                            if j.state == QUEUED][:max(free, 0)]
+                            if j.state == QUEUED][:max(self.slots - running, 0)]
                 for job in to_start:
                     job.state = RUNNING
                     job.start_time = time.time()
@@ -385,11 +289,6 @@ class SimulatedCluster:
             job.reason = f"{type(e).__name__}: {e}"
             code = 1
         with self._lock:
-            if job.state in TERMINAL:
-                # power_off() (or another out-of-band kill) already decided
-                # this job's fate while the payload was unwinding — a late
-                # COMPLETED must not resurrect a job the bridge saw FAILED
-                return
             job.exit_code = code
             job.end_time = time.time()
             if job._cancel.is_set() or code == -1:

@@ -37,7 +37,7 @@ from repro_torch.configs.base import get_smoke_config
 from repro_torch.core.backends import base as B
 from repro_torch.core.backends.slurm import make_server as make_slurm_server
 from repro_torch.core.objectstore import ObjectStore
-from repro_torch.core.rest import FaultProfile, RestServer
+from repro_torch.core.rest import RestServer
 from repro_torch.data import DataConfig, SyntheticDataset
 from repro_torch.optim import AdamWConfig, adamw_init
 from repro_torch.serving.engine import ServingEngine
@@ -95,10 +95,7 @@ def train_job(spec: Dict[str, Any], store: ObjectStore,
                 mgr.wait()
             return {"state": "cancelled", "step": step, "history": history}
         if crash_at and step == crash_at and step > start_step:
-            # simulated node failure mid-run (AFTER making some progress); an
-            # in-flight save is let finish, so the resume point is fixed
-            if mgr:
-                mgr.wait()
+            # simulated node failure mid-run (AFTER making some progress)
             raise RuntimeError(f"injected crash at step {step}")
         batch = {k: torch.from_numpy(v).to(dev) for k, v in ds.batch(step).items()}
         params, opt_state, metrics = step_fn(params, opt_state, batch)
@@ -227,6 +224,5 @@ def make_jaxlocal_cluster(store: ObjectStore, name: str = "jaxlocal",
                               start_numbering=start_numbering)
 
 
-def make_server(cluster: B.SimulatedCluster, token: str = "",
-                fault: FaultProfile = None) -> RestServer:
-    return make_slurm_server(cluster, token=token, fault=fault)
+def make_server(cluster: B.SimulatedCluster, token: str = "") -> RestServer:
+    return make_slurm_server(cluster, token=token)

@@ -14,7 +14,7 @@ from __future__ import annotations
 from typing import Any, Dict
 
 from repro_torch.core.backends import base as B
-from repro_torch.core.rest import FaultProfile, HttpResponse, RestServer
+from repro_torch.core.rest import HttpResponse, RestServer
 
 _STATE_TO_SLURM = {
     B.QUEUED: "PENDING",
@@ -25,9 +25,8 @@ _STATE_TO_SLURM = {
 }
 
 
-def make_server(cluster: B.SimulatedCluster, token: str = "",
-                fault: FaultProfile = None) -> RestServer:
-    srv = RestServer(token=token, fault=fault)
+def make_server(cluster: B.SimulatedCluster, token: str = "") -> RestServer:
+    srv = RestServer(token=token)
 
     def submit(_groups, body) -> HttpResponse:
         body = body or {}

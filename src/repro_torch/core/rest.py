@@ -1,37 +1,30 @@
 """The server side of the simulated HTTP/HTTPS transport.
 
 The port's own copy of the server half of ``repro.core.rest`` (the port
-imports nothing of the JAX package): ``TransportError``, ``HttpResponse``,
-``FaultProfile`` and ``RestServer``, with the same route table, bearer-token
-auth, per-route counters, query-string merging and ``watch`` routes (a
-handler that may block until a state version advances or its wait budget,
-capped by the client's timeout, runs out and it answers 204).  A resource
-manager of the port serves its REST dialect through it.
+imports nothing of the JAX package): ``HttpResponse`` and ``RestServer``,
+with the same route table, bearer-token auth, per-route counters,
+query-string merging and ``watch`` routes (a handler that may block until a
+state version advances or its wait budget, capped by the client's timeout,
+runs out and it answers 204).  A resource manager of the
+port serves its REST dialect through it.
 
 The client side (``Channel``, ``RestClient``, ``ResourceManagerDirectory``)
 belongs to the Bridge and is not copied: the Bridge of ``repro.core``
 reaches a server of the port through ``handle``, which has the reference's
-signature.  Its ``TransportError`` is this module's own class, so the
-Bridge, which recognises a transport fault by the reference's class, does
-not take a fault injected by this ``FaultProfile`` for a network fault;
-tests that inject faults on the Bridge's side of the wire use the
-reference's ``FaultProfile`` in front of this server (ROADMAP.md, "Rules of
-the port").
+signature.  The reference's ``TransportError`` and ``FaultProfile`` are not
+copied either: the Bridge recognises a network fault by the reference's
+class, so faults are injected only on the Bridge's side of the wire, with
+the reference's ``FaultProfile`` in front of this server (ROADMAP.md,
+"Rules of the port").
 """
 from __future__ import annotations
 
 import math
-import random
 import re
 import threading
-import time
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Tuple
 from urllib.parse import parse_qsl
-
-
-class TransportError(ConnectionError):
-    """Network-level failure (timeout / connection refused)."""
 
 
 @dataclass
@@ -44,113 +37,6 @@ class HttpResponse:
         return 200 <= self.status < 300
 
 
-@dataclass
-class FaultProfile:
-    """Deterministic (seeded) fault injection for the simulated network.
-
-    Composable fault modes, all usable at once:
-
-      * ``drop_rate``/``latency``/``seed`` — steady-state packet loss and RTT;
-      * ``begin_outage()``/``end_outage()`` — a hard blackout, every request
-        fails until lifted;
-      * ``schedule_blackout(start_in, duration)`` — a timed blackout window
-        (``duration=None`` = until further notice), checked lazily against
-        the wall clock so chaos tests can pre-program a kill;
-      * ``schedule_flaps(...)`` — N short blackout windows on a fixed period
-        (a flapping endpoint), built from timed windows;
-      * ``fail_next(n)`` — exactly the next ``n`` requests fail, for
-        deterministic single-blip tests;
-      * ``begin_partition()``/``end_partition()`` — the request EXECUTES on
-        the server but the reply is lost (classic network partition): this
-        is the mode that exercises at-most-once handling, because the client
-        cannot tell a lost reply from a lost request.
-    """
-    drop_rate: float = 0.0        # probability a request raises TransportError
-    latency: float = 0.0          # fixed per-request latency (seconds)
-    seed: int = 0
-    # hard outage window: every request fails while ``outage`` is set
-    _outage: threading.Event = field(default_factory=threading.Event, repr=False)
-    # reply-lost partition: handlers run, responses vanish
-    _partition: threading.Event = field(default_factory=threading.Event,
-                                        repr=False)
-    _rng: random.Random = field(default=None, repr=False)
-    # one shared seeded Random serves every concurrent caller; the lock keeps
-    # each check() consuming exactly one draw so drop injection stays
-    # deterministic however many pods/workers hit the server at once
-    _rng_lock: threading.Lock = field(default_factory=threading.Lock,
-                                      repr=False)
-    # timed blackout windows [(start, end-or-None), ...], absolute times
-    _windows: List[Tuple[float, Optional[float]]] = field(
-        default_factory=list, repr=False)
-    _fail_next: int = field(default=0, repr=False)
-
-    def __post_init__(self):
-        self._rng = random.Random(self.seed)
-
-    def begin_outage(self) -> None:
-        self._outage.set()
-
-    def end_outage(self) -> None:
-        self._outage.clear()
-
-    def begin_partition(self) -> None:
-        self._partition.set()
-
-    def end_partition(self) -> None:
-        self._partition.clear()
-
-    def reply_lost(self) -> bool:
-        """Consulted by the server AFTER the handler ran: True = drop the
-        response on the floor (the partition fault mode)."""
-        return self._partition.is_set()
-
-    def schedule_blackout(self, start_in: float = 0.0,
-                          duration: Optional[float] = None) -> None:
-        """Blackout every request in the window ``[now+start_in, now+
-        start_in+duration)``; ``duration=None`` never ends."""
-        start = time.time() + start_in
-        end = None if duration is None else start + duration
-        with self._rng_lock:
-            self._windows.append((start, end))
-
-    def schedule_flaps(self, start_in: float, count: int, down_for: float,
-                       up_for: float) -> None:
-        """A flapping endpoint: ``count`` blackouts of ``down_for`` seconds,
-        one every ``down_for + up_for`` seconds, starting at ``start_in``."""
-        for i in range(count):
-            self.schedule_blackout(start_in + i * (down_for + up_for),
-                                   down_for)
-
-    def fail_next(self, n: int = 1) -> None:
-        """Fail exactly the next ``n`` requests (deterministic blip)."""
-        with self._rng_lock:
-            self._fail_next += n
-
-    def _in_blackout_window(self, now: float) -> bool:
-        with self._rng_lock:
-            for start, end in self._windows:
-                if start <= now and (end is None or now < end):
-                    return True
-        return False
-
-    def check(self) -> None:
-        if self.latency:
-            time.sleep(self.latency)
-        if self._outage.is_set():
-            raise TransportError("simulated network outage")
-        if self._windows and self._in_blackout_window(time.time()):
-            raise TransportError("simulated network outage (scheduled)")
-        with self._rng_lock:
-            if self._fail_next > 0:
-                self._fail_next -= 1
-                raise TransportError("simulated transient blip")
-        if self.drop_rate:
-            with self._rng_lock:
-                drop = self._rng.random() < self.drop_rate
-            if drop:
-                raise TransportError("simulated packet loss")
-
-
 Handler = Callable[[Dict[str, str], Any], HttpResponse]
 # watch handlers additionally receive the wait budget (seconds) the server
 # grants them: min(what the query asked for, what the client will wait)
@@ -160,10 +46,9 @@ WatchHandler = Callable[[Dict[str, str], Any, float], HttpResponse]
 class RestServer:
     """Route table + bearer-token auth for one simulated resource manager."""
 
-    def __init__(self, token: str = "", fault: Optional[FaultProfile] = None):
+    def __init__(self, token: str = ""):
         self._routes: List[Tuple[str, re.Pattern, Handler, str, str]] = []
         self._token = token
-        self.fault = fault or FaultProfile()
         self.request_count = 0
         self._lock = threading.Lock()
         # per-route request/error counters, keyed "METHOD /pattern"
@@ -196,13 +81,8 @@ class RestServer:
     def handle(self, method: str, path: str, json_body: Any = None,
                headers: Optional[Dict[str, str]] = None,
                timeout: Optional[float] = None) -> HttpResponse:
-        # the client gives up before a too-slow response can arrive — this is
-        # where RestClient.timeout actually bites (watch routes additionally
-        # cap their blocking wait to the same budget below)
-        if timeout is not None and self.fault.latency > timeout:
-            time.sleep(timeout)
-            raise TransportError(f"client timed out after {timeout}s")
-        self.fault.check()
+        # ``timeout`` is the client's: watch routes cap their blocking wait
+        # to it below
         with self._lock:
             self.request_count += 1
         headers = headers or {}
@@ -233,10 +113,6 @@ class RestServer:
                     resp = HttpResponse(500,
                                         {"error": f"{type(e).__name__}: {e}"})
                 self._count(key, error=resp.status >= 400)
-                # partition: the handler RAN (side effects happened) but the
-                # reply never reaches the client — at-most-once territory
-                if self.fault.reply_lost():
-                    raise TransportError("simulated partition: reply lost")
                 return resp
         self._count("(unmatched)", error=True)
         return HttpResponse(404, {"error": f"no route {method} {path}"})
