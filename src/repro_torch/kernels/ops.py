@@ -6,10 +6,19 @@ take the mixer's (B, S, di[, N]) tensors in f32.
 
 Dispatch is by the device of the tensors and nothing else: a CPU tensor goes
 to the plain version in ``ref``; a CUDA tensor launches the CUDA kernel or
-raises.  The arguments are checked once per call: by the launcher on the
-card, by the same ``check_args`` here on the CPU.  Each wrapper's
+raises; a ``meta`` tensor (the dry-run, ``launch/dryrun.py``) gets empty
+outputs of the kernel's shapes and dtypes, and nothing runs.  The arguments
+are checked once per call: by the launcher on the card, by the same
+``check_args`` here on the CPU and on ``meta``.  Each wrapper's
 ``launches`` attribute counts the calls that launched its kernel (the plain
-version is not counted); one K2 call runs two grids, split and combine.
+version and ``meta`` calls are not counted); one K2 call runs two grids,
+split and combine.
+
+A call that launched its kernel or ran on ``meta`` is charged to every
+function in ``COST_OBSERVERS`` (the step counter of ``launch/analysis.py``)
+as ``(name, flops, nbytes)`` from its shapes alone (``kernel_cost``), the
+same on both, so a dry-run's count equals the card's.  The CPU's plain
+versions are plain PyTorch, which a counter sees op by op.
 
 The scans take any S: the kernels need no chunk multiple, so there is no
 padding here (the JAX wrappers pad with identity steps, which leave y and
@@ -26,7 +35,7 @@ the model code (``models/ssm.py``), and K3 and K4 serve its prefill alone.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Callable, Dict, List, Tuple
 
 import torch
 
@@ -38,6 +47,48 @@ from repro_torch.kernels.flash_attention import flash_attention_bshd
 from repro_torch.kernels.ssm_scan import check_fused_args as _check_fused
 from repro_torch.kernels.ssm_scan import check_scan_args as _check_scan
 from repro_torch.kernels.ssm_scan import ssm_scan_bsdn, ssm_scan_fused_bsd
+
+
+# called as fn(name, flops, nbytes) for each kernel call on CUDA or meta
+COST_OBSERVERS: List[Callable[[str, float, float], None]] = []
+
+
+def kernel_cost(name: str, *args: torch.Tensor) -> Tuple[float, float]:
+    """(FLOPs, bytes) of one call of kernel ``name`` on the wrapper's
+    arguments, from their shapes: each input read once and each output
+    written once; FLOPs of the products (K1 over the causal pairs).  K2 is
+    charged for its whole cache, M slots: the valid lengths are values on
+    the device, which a count from shapes cannot read.  These are the
+    formulas of the bound column of PERF.md's kernel table (K3's exps
+    aside, which are not FLOPs)."""
+    if name == "flash_attention":
+        q, k = args[:2]
+        b, s, hq, d = q.shape
+        return (2.0 * b * hq * d * s * (s + 1),
+                float(q.element_size() * (2 * b * s * hq * d + 2 * b * s * k.shape[2] * d)))
+    if name == "decode_attention":
+        q, cache_k = args[:2]
+        b, _, hq, d = q.shape
+        m, hkv = cache_k.shape[1], cache_k.shape[2]
+        return (4.0 * b * hq * m * d,
+                float(q.element_size() * (2 * b * hq * d + 2 * b * m * hkv * d) + 4 * b))
+    if name == "ssm_scan":
+        b, s, di, n = args[0].shape
+        return 4.0 * b * s * di * n, float(4 * (2 * b * s * di * n + b * s * n + b * s * di
+                                                + b * di * n))
+    if name == "ssm_scan_fused":
+        b, s, di = args[0].shape
+        n = args[4].shape[1]
+        return 7.0 * b * s * di * n, float(4 * (2 * b * s * di + 2 * b * s * n + di * n
+                                                + b * s * di + b * di * n))
+    raise KeyError(name)
+
+
+def _charge(name: str, *args: torch.Tensor) -> None:
+    if COST_OBSERVERS:
+        flops, nbytes = kernel_cost(name, *args)
+        for fn in COST_OBSERVERS:
+            fn(name, flops, nbytes)
 
 
 def no_backward_message(name: str) -> str:
@@ -59,8 +110,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
         out = _ref.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
                                        v.transpose(1, 2))
         return out.transpose(1, 2)
-    out = flash_attention_bshd(q, k, v)
-    flash_attention.launches += 1
+    if q.device.type == "meta":
+        _check_flash(q, k, v)
+        out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    else:
+        out = flash_attention_bshd(q, k, v)
+        flash_attention.launches += 1
+    _charge("flash_attention", q, k, v)
     return out
 
 
@@ -74,8 +130,13 @@ def decode_attention(q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tens
         out = _ref.decode_attention_ref(q[:, 0], cache_k.transpose(1, 2),
                                         cache_v.transpose(1, 2), lengths)
         return out[:, None]
-    out = decode_attention_bmhd(q, cache_k, cache_v, lengths)
-    decode_attention.launches += 1
+    if q.device.type == "meta":
+        _check_decode(q, cache_k, cache_v, lengths)
+        out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    else:
+        out = decode_attention_bmhd(q, cache_k, cache_v, lengths)
+        decode_attention.launches += 1
+    _charge("decode_attention", q, cache_k, cache_v, lengths)
     return out
 
 
@@ -87,8 +148,13 @@ def ssm_scan(dA: torch.Tensor, dBx: torch.Tensor, C: torch.Tensor
     if dA.device.type == "cpu":
         _check_scan(dA, dBx, C)
         return _ref.ssm_scan_ref(dA, dBx, C)
-    out = ssm_scan_bsdn(dA, dBx, C)
-    ssm_scan.launches += 1
+    if dA.device.type == "meta":
+        _check_scan(dA, dBx, C)
+        out = _meta_scan_outputs(*dA.shape)
+    else:
+        out = ssm_scan_bsdn(dA, dBx, C)
+        ssm_scan.launches += 1
+    _charge("ssm_scan", dA, dBx, C)
     return out
 
 
@@ -101,9 +167,20 @@ def ssm_scan_fused(delta: torch.Tensor, B: torch.Tensor, C: torch.Tensor, x: tor
     if delta.device.type == "cpu":
         _check_fused(delta, B, C, x, A)
         return _ref.ssm_scan_ref(*_ref.ssm_discretize(delta, B, x, A), C)
-    out = ssm_scan_fused_bsd(delta, B, C, x, A)
-    ssm_scan_fused.launches += 1
+    if delta.device.type == "meta":
+        _check_fused(delta, B, C, x, A)
+        out = _meta_scan_outputs(*delta.shape, A.shape[1])
+    else:
+        out = ssm_scan_fused_bsd(delta, B, C, x, A)
+        ssm_scan_fused.launches += 1
+    _charge("ssm_scan_fused", delta, B, C, x, A)
     return out
+
+
+def _meta_scan_outputs(b: int, s: int, di: int, n: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Empty (y (B,S,di), h_last (B,di,N)) f32 on ``meta``: what K3 and K4 return."""
+    return (torch.empty((b, s, di), dtype=torch.float32, device="meta"),
+            torch.empty((b, di, n), dtype=torch.float32, device="meta"))
 
 
 flash_attention.launches = 0

@@ -76,6 +76,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, window: int = 0,
     return cache
 
 
+def cache_specs(cfg: ModelConfig, batch: int, max_len: int, window: int = 0) -> Dict[str, Any]:
+    """``init_cache`` as ``meta`` tensors: the cache's shapes and dtypes,
+    nothing allocated (the reference's ``jax.eval_shape`` of it)."""
+    return init_cache(cfg, batch, max_len, window, device="meta")
+
+
 def prefill(params: Params, cfg: ModelConfig, batch_inputs: Dict[str, torch.Tensor],
             max_len: int, window: int = 0) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Run the full prompt, returning (last-token logits (B,1,V), filled cache).

@@ -1,8 +1,7 @@
 """Core layers: norms, RoPE, GQA attention (causal, bidirectional and
 cross, for prefill and decode), MLPs, embedding, learned position tables.
 
-Port of ``repro.models.layers`` (not its blockwise attention, which is
-refused with or without a window), with the same convention:
+Port of ``repro.models.layers``, with the same convention:
 ``<layer>_defs(cfg)`` returns a dict of ParamDef and ``<layer>(params, x,
 ...)`` applies it.  Softmax and norms run in f32 and cast back to the
 activation dtype, as in the reference.
@@ -133,10 +132,52 @@ def _plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _gqa_out(_masked_softmax(scores, mask, q.dtype), v)
 
 
+ATTENTION_IMPLS = ("xla", "pallas", "blockwise", "blockwise_u")
+
+
 def _check_impl(impl: str) -> None:
-    if impl not in ("pallas", "xla"):
+    if impl not in ATTENTION_IMPLS:
         raise NotImplementedError(f"attention_impl={impl!r} is not ported; "
-                                  "the port has 'xla' and 'pallas'")
+                                  f"the port has {ATTENTION_IMPLS}")
+
+
+def _blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg,
+                         window: int) -> torch.Tensor:
+    """Causal self-attention in chunks of ``cfg.attention_block_q`` queries
+    (reference layers.py:111): each chunk's (B,Hkv,G,bq,S) f32 scores, the
+    causal mask (and the ``window``), the f32 softmax and the product with
+    V, so the (S,S) scores never exist at once.  S is padded with zero
+    queries to a multiple of the chunk; their rows are cut.  The masks are
+    built on the device from ``arange``s.  q: (B,S,Hq,D), k/v: (B,S,Hkv,D).
+
+    The reference's ``blockwise`` runs the chunks in a ``lax.scan`` and
+    ``blockwise_u`` unrolls them in Python, with the same numbers.  In eager
+    PyTorch both are this one Python loop, which autograd differentiates
+    for training; no kernel is involved."""
+    b, s, hq, d = q.shape
+    bq = min(cfg.attention_block_q, s)
+    pad = (-s) % bq
+    if pad:
+        q = F.pad(q, (0, 0, 0, 0, 0, pad))
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+    kt = torch.arange(s, device=q.device)[None, :]
+    rows = torch.arange(bq, device=q.device)[:, None]
+    outs = []
+    for lo in range(0, s + pad, bq):
+        scores = _gqa_scores(q[:, lo:lo + bq], k, n_rep, cfg.resolved_head_dim)
+        mask = kt <= rows + lo
+        if window > 0:
+            mask = mask & (kt > rows + lo - window)
+        outs.append(_gqa_out(_masked_softmax(scores, mask, q.dtype), v))
+    return torch.cat(outs, dim=1)[:, :s]
+
+
+def _maybe_seq_shard(x: torch.Tensor, cfg) -> torch.Tensor:
+    """The identity: ``attention_partitioning="seq"`` constrains q to be
+    sharded over the sequence on a mesh (reference layers.py:150), and one
+    device has no mesh.  Sharding waits for distribution (ROADMAP.md Queue 1
+    item 5)."""
+    return x
 
 
 def attn_forward(p: Params, x: torch.Tensor, positions: torch.Tensor, cfg,
@@ -151,9 +192,11 @@ def attn_forward(p: Params, x: torch.Tensor, positions: torch.Tensor, cfg,
     (k source, v source) makes it cross-attention: a 4-D source (B,Sk,Hkv,D)
     is the K or V as it is, a 3-D one (B,Sk,d) is projected; rope is
     skipped.  ``causal=False`` attends every key.  As in the reference
-    (layers.py:204), K1 takes only causal self-attention with no window; the
-    rest runs the plain path on either ``attention_impl``, so a windowed
-    prefill launches no K1 even when the prompt fits in the window."""
+    (layers.py:204-213), K1 (``"pallas"``) takes only causal self-attention
+    with no window, and ``"blockwise"`` / ``"blockwise_u"`` causal
+    self-attention with or without a window (``_blockwise_attention``); the
+    rest runs the plain path, so a windowed prefill launches no K1 even when
+    the prompt fits in the window."""
     impl = cfg.attention_impl
     _check_impl(impl)
     q = _project(x, p["wq"])
@@ -170,6 +213,8 @@ def attn_forward(p: Params, x: torch.Tensor, positions: torch.Tensor, cfg,
         # K1: the CUDA flash-attention kernel for CUDA tensors, its plain
         # version for CPU tensors
         out = kops.flash_attention(q, k, v)
+    elif impl in ("blockwise", "blockwise_u") and self_causal:
+        out = _blockwise_attention(_maybe_seq_shard(q, cfg), k, v, cfg, window)
     else:
         mask = None
         if self_causal:
@@ -195,7 +240,9 @@ def attn_decode(p: Params, x: torch.Tensor, cache_k: torch.Tensor, cache_v: torc
     ``pos % M``.  A slot >= M writes nothing, as the reference's one-hot
     blend does.  With ``cross=True`` the
     cache is the fixed encoder K/V: nothing is written, no rope, every slot
-    is attended, on the plain path (layers.py:271 of the reference)."""
+    is attended, on the plain path (layers.py:271 of the reference).  Only
+    ``"pallas"`` takes a kernel (K2); ``"blockwise"`` decodes on the plain
+    path, as in the reference."""
     impl = cfg.attention_impl
     _check_impl(impl)
     q = _project(x, p["wq"])
@@ -283,8 +330,9 @@ def embed_tokens(p: Params, tokens: torch.Tensor, cfg) -> torch.Tensor:
     x = p["embedding"][tokens]  # gather
     if cfg.embed_scale:
         # sqrt(d_model) is cast to the activation dtype BEFORE the multiply
-        # (in bf16, sqrt(2048) becomes 45.25)
-        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype, device=x.device)
+        # (in bf16, sqrt(2048) becomes 45.25); made on the device, with no
+        # copy from the host
+        x = x * torch.full((), math.sqrt(cfg.d_model), dtype=x.dtype, device=x.device)
     return x
 
 

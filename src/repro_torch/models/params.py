@@ -2,7 +2,9 @@
 
 Port of ``repro.models.params``.  A model is a nested dict (or list) of
 ``ParamDef``s; ``init_params`` turns it into tensors with the same keys.
-``params_from_numpy`` carries a parameter tree made elsewhere (for example
+``abstract_params`` gives the same tree as ``meta`` tensors (the dry-run's
+stand-ins: shapes and dtypes, no storage).  ``params_from_numpy`` carries a
+parameter tree made elsewhere (for example
 the JAX package's, converted leaf by leaf to numpy) into the same structure.
 """
 from __future__ import annotations
@@ -102,6 +104,12 @@ def init_params(defs: Any, generator: torch.Generator, device=None) -> Any:
     ``device`` (default: the generator's own device)."""
     device = generator.device if device is None else torch.device(device)
     return tree_map(lambda d: _init_leaf(d, generator, device), defs)
+
+
+def abstract_params(defs: Any) -> Any:
+    """Every ParamDef of ``defs`` as an empty ``meta`` tensor of its shape and
+    dtype: nothing is allocated or drawn."""
+    return tree_map(lambda d: torch.empty(d.shape, dtype=d.dtype, device="meta"), defs)
 
 
 def count_params(defs: Any) -> int:

@@ -73,8 +73,8 @@ def _mlstm_qkvgates(p: Params, x: torch.Tensor, cfg, conv_state: Optional[torch.
     c, conv_state = _causal_conv(u, p["conv_w"], p["conv_b"], conv_state)
     c = F.silu(c)
     q = torch.einsum("bsd,dhk->bshk", c, p["w_q"])
-    scale = torch.tensor(math.sqrt(q.shape[-1]), dtype=torch.float32).to(c.dtype)
-    k = torch.einsum("bsd,dhk->bshk", c, p["w_k"]) / scale.to(c.device)
+    scale = torch.full((), math.sqrt(q.shape[-1]), dtype=torch.float32, device=c.device)
+    k = torch.einsum("bsd,dhk->bshk", c, p["w_k"]) / scale.to(c.dtype)
     v = torch.einsum("bsd,dhk->bshk", u, p["w_v"])
     ig = xn.float() @ p["w_i"] + p["b_i"]
     fg = xn.float() @ p["w_f"] + p["b_f"]

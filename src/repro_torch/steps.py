@@ -1,22 +1,39 @@
-"""Model initialisation (port of ``repro.steps.init_model``), the train step
-(``make_train_step``), and the device rule every entry point follows: the
-card unless the caller asks for the CPU, and an error, never a quiet CPU
-run, when there is no card.
+"""The steps (port of ``repro.steps``): model initialisation, the train
+step, and a ``StepBundle`` for every (arch x shape) cell, plus the device
+rule every entry point follows: the card unless the caller asks for the
+CPU, and an error, never a quiet CPU run, when there is no card.
 
-The reference's train step is a pjit bundle with shardings, ZeRO-1 and a
-``strategy``; the port's runs on one device and takes none of those until
-distribution is ported.
+A bundle's ``input_specs`` are ``meta`` tensors (shapes and dtypes, no
+storage), the stand-ins of the reference's ``ShapeDtypeStruct``s: calling
+``fn(**input_specs)`` runs the step on ``meta``, which is what the dry-run
+does (``launch/dryrun.py``).  The reference's bundles also carry
+``in_shardings`` / ``out_shardings`` and take a mesh and a ``strategy``;
+the port's run on one device and take none of those until distribution is
+ported (ROADMAP.md Queue 1 item 5).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.models import decoding as DEC
 from repro_torch.models import transformer as TF
-from repro_torch.models.params import init_params, tree_map, tree_paths
-from repro_torch.optim.adamw import AdamWConfig, adamw_update
+from repro_torch.models.layers import adtype
+from repro_torch.models.params import abstract_params, init_params, tree_map, tree_paths
+from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
+
+
+@dataclasses.dataclass(frozen=True)
+class StepBundle:
+    """One cell's step: ``fn(**input_specs)`` runs it.  ``donate_argnames``
+    are the inputs the step overwrites in place (the reference donates
+    them)."""
+    fn: Callable
+    input_specs: Dict[str, Any]
+    donate_argnames: Tuple[str, ...] = ()
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -25,6 +42,107 @@ def resolve_device(device="cuda") -> torch.device:
         raise RuntimeError(f"device {device!r} requested but CUDA is not available; "
                            "pass device='cpu' (--device cpu) to run on the CPU")
     return dev
+
+
+def _spec(shape: Tuple[int, ...], dtype: torch.dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def batch_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, torch.Tensor]:
+    """The model inputs of a cell (no params, optimizer state or cache) as
+    ``meta`` tensors: tokens (and targets and mask for ``train``) of B x S
+    minus the vlm's image rows, the stub frontend's ``img_embeds`` (vlm) or
+    ``enc_frames`` (encdec); one token a row for ``decode``."""
+    b, s = shape.global_batch, shape.seq_len
+    if shape.kind not in ("train", "prefill"):
+        return {"tokens": _spec((b, 1), torch.int32)}
+    s_text = s - (cfg.n_img_tokens if cfg.family == "vlm" else 0)
+    specs = {"tokens": _spec((b, s_text), torch.int32)}
+    if cfg.family == "vlm":
+        specs["img_embeds"] = _spec((b, cfg.n_img_tokens, cfg.d_model), adtype(cfg))
+    if cfg.family == "encdec":
+        specs["enc_frames"] = _spec((b, cfg.enc_frames, cfg.d_model), adtype(cfg))
+    if shape.kind == "train":
+        specs["targets"] = _spec((b, s_text), torch.int32)
+        specs["mask"] = _spec((b, s_text), torch.float32)
+    return specs
+
+
+def make_synthetic_batch(cfg: ModelConfig, shape: ShapeConfig, seed: int = 0,
+                         device="cuda") -> Dict[str, torch.Tensor]:
+    """A random batch matching ``batch_specs`` on ``device``, drawn from a
+    generator seeded with ``seed``: ints uniform in [0, vocab), the mask all
+    ones, embeddings standard normal in f32 cast to their dtype."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    out = {}
+    for key, spec in batch_specs(cfg, shape).items():
+        if spec.dtype == torch.int32:
+            out[key] = torch.randint(0, cfg.vocab, spec.shape, generator=gen, device=dev,
+                                     dtype=torch.int32)
+        elif key == "mask":
+            out[key] = torch.ones(spec.shape, dtype=spec.dtype, device=dev)
+        else:
+            out[key] = torch.randn(spec.shape, generator=gen, device=dev).to(spec.dtype)
+    return out
+
+
+def decode_window(cfg: ModelConfig, shape: ShapeConfig) -> int:
+    """The sliding window a decode cell runs with: ``cfg.long_window`` on the
+    ``long_500k`` shape where the arch has one, else 0 (reference
+    steps.py:155)."""
+    return cfg.long_window if (shape.name == "long_500k" and cfg.long_window) else 0
+
+
+def make_prefill_step(cfg: ModelConfig, shape: ShapeConfig) -> StepBundle:
+    """``fn(params, batch) -> (last-token logits, cache of seq_len)``, under
+    ``no_grad``."""
+    defs = TF.model_defs(cfg, max_seq=shape.seq_len)
+
+    @torch.no_grad()
+    def prefill_step(params, batch):
+        return DEC.prefill(params, cfg, batch, max_len=shape.seq_len)
+
+    return StepBundle(fn=prefill_step, input_specs={"params": abstract_params(defs),
+                                                    "batch": batch_specs(cfg, shape)})
+
+
+def make_decode_step(cfg: ModelConfig, shape: ShapeConfig) -> StepBundle:
+    """``fn(params, cache, batch) -> (logits, cache)``: one token a row
+    against a cache of seq_len slots (``decode_window`` of them on
+    ``long_500k``), written in place, under ``no_grad``."""
+    window = decode_window(cfg, shape)
+    defs = TF.model_defs(cfg, max_seq=shape.seq_len)
+
+    @torch.no_grad()
+    def decode_step(params, cache, batch):
+        return DEC.decode_step(params, cfg, cache, batch["tokens"], window=window)
+
+    return StepBundle(
+        fn=decode_step,
+        input_specs={"params": abstract_params(defs),
+                     "cache": DEC.cache_specs(cfg, shape.global_batch, shape.seq_len, window),
+                     "batch": batch_specs(cfg, shape)},
+        donate_argnames=("cache",))
+
+
+def make_step(cfg: ModelConfig, shape: ShapeConfig,
+              opt_cfg: Optional[AdamWConfig] = None) -> StepBundle:
+    """The bundle of a cell of ``shape.kind``.  ``train`` wraps
+    ``make_train_step(cfg, opt_cfg)`` (remat on, the reference's default)
+    with the meta params, their ``adamw_init`` and the batch; the other
+    kinds ignore ``opt_cfg``."""
+    if shape.kind == "prefill":
+        return make_prefill_step(cfg, shape)
+    if shape.kind == "decode":
+        return make_decode_step(cfg, shape)
+    params = abstract_params(TF.model_defs(cfg, max_seq=shape.seq_len))
+    return StepBundle(
+        fn=make_train_step(cfg, opt_cfg),
+        input_specs={"params": params, "opt_state": adamw_init(params),
+                     "batch": batch_specs(cfg, shape)},
+        donate_argnames=("params", "opt_state"))
 
 
 def init_model(cfg: ModelConfig, seed: int = 0, max_seq: int = 128,

@@ -140,11 +140,21 @@ def test_attn_decode_writes_at_write_pos(jimpl, timpl, calls):
 
 
 def test_blockwise_attention_is_not_ported():
-    _, tcfg = _cfgs("gemma-2b", timpl="blockwise")
+    """The blockwise attention is ported now (tests/test_torch_blockwise.py);
+    what the port still refuses, with or without a window, at prefill and at
+    decode, is an ``attention_impl`` outside its list, the reference's
+    ``pallas_interpret`` (a JAX interpret mode) among them."""
     x = torch.zeros(1, 4, 64)
-    p = {k: torch.zeros(v.shape) for k, v in TL.attention_defs(tcfg).items()}
-    with pytest.raises(NotImplementedError, match="blockwise"):
-        TL.attn_forward(p, x, torch.zeros(1, 4, dtype=torch.int32), tcfg, window=2)
+    pos = torch.zeros(1, 4, dtype=torch.int32)
+    for impl in ("pallas_interpret", "flash"):
+        _, tcfg = _cfgs("gemma-2b", timpl=impl)
+        p = {k: torch.zeros(v.shape) for k, v in TL.attention_defs(tcfg).items()}
+        for window in (0, 2):
+            with pytest.raises(NotImplementedError, match=f"attention_impl={impl!r}"):
+                TL.attn_forward(p, x, pos, tcfg, window=window)
+        cache = torch.zeros(1, 8, tcfg.n_kv_heads, tcfg.resolved_head_dim)
+        with pytest.raises(NotImplementedError, match=f"attention_impl={impl!r}"):
+            TL.attn_decode(p, x[:, :1], cache, cache.clone(), pos[:, 0], tcfg)
 
 
 # -- hymba-smoke: prefill past the window, then decode past the wrap -----------------
