@@ -13,7 +13,9 @@ Differences from the reference:
 - One device: the record says ``n_chips`` 1; ``--multi-pod``,
   ``--both-meshes`` and the strategy's shardings wait for distribution
   (ROADMAP.md Queue 1 item 5), and the collective statistics are zeros.
-  ``strategy`` is recorded, as the reference's default or the caller's.
+  ``strategy`` is recorded as the reference's default for the cell (or
+  ``run_cell``'s argument); the CLI has no ``--strategy``, since on one
+  device no choice changes the count.
 - No compile, so ``compile_s`` is ``count_s``, the meta run's time, and the
   keys that named HLO are ``flops_per_dev`` and ``bytes_per_dev``.
 - XLA's cost analysis visits a scan body once, so the reference compiles
@@ -146,7 +148,6 @@ def main() -> None:
     p.add_argument("--arch", choices=ARCH_IDS)
     p.add_argument("--shape", choices=list(SHAPES))
     p.add_argument("--all", action="store_true", help="every runnable cell")
-    p.add_argument("--strategy", choices=["tp", "fsdp_tp"])
     p.add_argument("--out", default="artifacts/dryrun_torch")
     p.add_argument("--skip-existing", action="store_true")
     p.add_argument("--perf", action="store_true",
@@ -167,8 +168,7 @@ def main() -> None:
             print(f"[dryrun] skip existing {path}")
             continue
         try:
-            rec = run_cell(arch, shape_name, strategy=args.strategy,
-                           overrides=perf_map.get((arch, shape_name)))
+            rec = run_cell(arch, shape_name, overrides=perf_map.get((arch, shape_name)))
         except Exception as e:  # noqa: BLE001  (every cell is tried; failures are listed)
             traceback.print_exc()
             failures.append((arch, shape_name, f"{type(e).__name__}: {e}"))
