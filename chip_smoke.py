@@ -181,6 +181,26 @@ Phases, in order; any failure exits non-zero with its traceback:
                ``torch.cuda.max_memory_allocated``, the FLOPs equal to the
                meta count; the roofline terms and the bound's share of the
                measured time.
+11. mesh     - the sharded prefill and decode bundles (``steps.py`` with a
+               mesh: DTensor params, batch and cache, K1, K2 and K4 in
+               ``local_map`` islands) on a (1, 1) mesh over NCCL, a process
+               group of one rank (one card holds no multi-rank mesh: NCCL
+               refuses two ranks on a device and gloo has no all-gather of
+               CUDA tensors).  gemma-2b and hymba-1.5b (the default
+               scan, K4) at full width and depth, bf16, B = 8, 512-token
+               prompts, 32 greedy decode steps, each run through the same
+               bundles with ``mesh=None`` first: the tokens equal, the logits within the
+               bf16 tolerance, every wrapper's launches equal (counters set
+               to 0 before each run: K1 and K4 n_layers, K2 32 x n_layers),
+               prefill and step ms of both (the step's DTensor host
+               overhead), and the bytes gathered per step (0 on one rank;
+               beside them the bytes a (1, m) mesh would gather, from the
+               specs).  Then K1 and K2 held against their plain versions
+               at the local shapes of a "model" axis at full width, one
+               rank's heads at a time in one process: gemma-2b at model =
+               2 and 4 (Hq 4 and 2, Hkv 1, D = 256) and hymba-1.5b at 5 (Hq
+               5, Hkv 1, D = 64), the ranks' outputs together equal to the
+               plain version on all heads.
 
 The last three lines are the card's name and power limit, one JSON object
 with the per-kernel numbers, and ``{"ok": true, "device": {...}}``.
@@ -293,6 +313,11 @@ CELL_WINDOW_HELD_S = 4096
 TRAIN_CELL = ("gemma-2b", "train_4k", (2, 1))
 TRAIN_CELL_MAX_BYTES = 70 * 2**30
 PEAK_REL_TOL = 0.10  # the dry-run's peak against torch.cuda.max_memory_allocated
+# phase 11: the sharded bundles on a (1, 1) mesh, at full width and depth
+MESH_BATCH, MESH_PROMPT = 8, 512
+MESH_ARCHS = ("gemma-2b", "hymba-1.5b")
+# the "model" axes whose gathered bytes phase 11 logs
+MESH_MODEL_AXES = {"gemma-2b": (2, 4), "hymba-1.5b": (5,)}
 # the dry-run's accounting of phase 10's cells, run in a process of its own
 # (on meta: no card) while the card works through phases 3-9
 DRYRUN_SCRIPT = r"""
@@ -2829,7 +2854,7 @@ def phase_cells(dryrun, kernels: list) -> dict:
     rec = dryrun.result()
     runs = {}
     for route, cfg in (("K1", ck), ("blockwise", cb)):
-        bundle = make_prefill_step(cfg, shape)
+        bundle = make_prefill_step(cfg, None, shape)
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launches()
         counted = route == "blockwise"
@@ -2998,7 +3023,7 @@ def phase_cells(dryrun, kernels: list) -> dict:
     trec = rec[f"train {bt}"]
     tcfg = get_config(arch, **_perf_overrides().get((arch, shape_name), {}))
     tshape = dataclasses.replace(SHAPES[shape_name], global_batch=bt)
-    bundle = make_step(tcfg, tshape)
+    bundle = make_step(tcfg, None, tshape)
     t0 = time.perf_counter()
     base = torch.cuda.memory_allocated()
     _, params = init_model(tcfg, seed=0, max_seq=tshape.seq_len, device="cuda")
@@ -3030,6 +3055,195 @@ def phase_cells(dryrun, kernels: list) -> dict:
     out["d_train"]["batch"] = bt
     del params, inputs, metrics, metrics2
     torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_gather_bytes(cfg, b: int, m_len: int, model: int) -> float:
+    """Bytes one rank of a (1, ``model``) mesh gathers per decode step to
+    bring the stored K/V cache (``cache_pspecs``) to K2's layout
+    (``layers._attention_layouts``): the growth of its local K and V, all
+    layers.  0 where the cache is stored in the kernel's layout."""
+    from repro_torch import sharding as SH
+    from repro_torch.models import decoding as DEC
+    from repro_torch.models import layers as L
+
+    mesh = {"data": 1, "model": model}
+    spec = DEC.cache_specs(cfg, b, m_len)
+    stored = SH.placements(SH.cache_pspecs(cfg, spec, mesh)["k"], mesh)
+    want = L._attention_layouts(mesh, b, cfg.n_heads, cfg.n_kv_heads)[1]
+
+    def local(pl):  # elements of a rank's shard of one layer's K
+        n = spec["k"][0].numel()
+        for size, p in zip(mesh.values(), pl):
+            n //= size if p.is_shard() else 1
+        return n
+    grow = local(want) - local(stored)
+    return float(max(grow, 0) * 2 * cfg.n_layers * spec["k"].element_size())
+
+
+def _mesh_run(arch: str, cfg, mesh, params, tokens, steps: int) -> dict:
+    """One prefill and ``steps`` greedy decode steps through the bundles on
+    ``mesh`` (None: one device), the launch counters set to 0 just before
+    and read just after."""
+    import torch
+
+    from repro_torch import sharding as SH
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.steps import make_decode_step, make_prefill_step
+
+    b, prompt = tokens.shape
+    m_len = prompt + steps
+    pre = make_prefill_step(cfg, mesh, ShapeConfig("prefill", m_len, b, "prefill"))
+    dec = make_decode_step(cfg, mesh, ShapeConfig("decode", m_len, b, "decode"))
+    if mesh is not None:
+        params = SH.distribute(params, mesh, pre.in_shardings[0])
+
+    def place(t, spec):  # the batch as the bundle takes it
+        return {"tokens": t} if mesh is None else SH.distribute({"tokens": t}, mesh, spec)
+    pre_spec, dec_spec = (pre.in_shardings[1], dec.in_shardings[2]) if mesh else (None, None)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    SH.relayout.gathered_bytes = 0
+    t0 = time.perf_counter()
+    logits, cache = pre.fn(params, place(tokens, pre_spec))
+    nxt = logits.argmax(-1)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    prefill_gathered = SH.relayout.gathered_bytes
+    SH.relayout.gathered_bytes = 0
+    all_logits, toks = [logits], []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        logits, cache = dec.fn(params, cache, place(nxt, dec_spec))
+        nxt = logits.argmax(-1)
+        all_logits.append(logits)
+        toks.append(nxt)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / steps
+    launches = ops.launches()
+    if mesh is not None:
+        want = tuple(SH.to_shardings(dec.out_shardings[1], mesh).values())
+        got = tuple(tuple(t.placements) for t in cache.values())
+        if got != want:
+            raise AssertionError(f"mesh {arch}: cache placements {got}, want {want}")
+    return {"logits": torch.stack([lg.float() for lg in all_logits]),
+            "tokens": torch.cat(toks, dim=1), "launches": launches, "prefill_ms": prefill_ms,
+            "step_ms": step_ms, "gathered_per_step": SH.relayout.gathered_bytes / steps,
+            "prefill_gathered": prefill_gathered}
+
+
+def _hold_local_heads(what: str, hq: int, hkv: int, d: int, model: int) -> None:
+    """K1 and K2 at full width on each of ``model`` ranks' heads (q's sliced,
+    kv's sliced when Hkv divides ``model``, else whole: the rule of
+    ``layers._attention_layouts``), bf16, B = MESH_BATCH: each rank's call
+    against the plain version on the same local tensors, and the ranks'
+    outputs together against the plain version on all heads."""
+    import torch
+
+    b, s, m_len = MESH_BATCH, MESH_PROMPT, MESH_PROMPT + DECODE_STEPS
+    lq, split_kv = hq // model, hkv % model == 0
+    lkv = hkv // model if split_kv else hkv
+    if hq % model or not (split_kv or hkv == 1):
+        raise AssertionError(f"{what}: {hq}/{hkv} heads have no exact split over {model}")
+    q, k, v = _flash_inputs(b, s, hq, hkv, d, torch.bfloat16, 110 + model)
+    lengths = torch.randint(1, m_len + 1, (b,), generator=torch.Generator().manual_seed(model))
+    dq, dk, dv, dl = _decode_inputs(b, m_len, hq, hkv, d, torch.bfloat16, 120 + model,
+                                    lengths.tolist())
+    from repro_torch.kernels import ops
+
+    worst, outs, douts = 0.0, [], []
+    for r in range(model):
+        hs = slice(r * lq, (r + 1) * lq)
+        ks = slice(r * lkv, (r + 1) * lkv) if split_kv else slice(None)
+        args = (q[:, :, hs], k[:, :, ks], v[:, :, ks])
+        outs.append(ops.flash_attention(*[a.contiguous() for a in args]))
+        worst = max(worst, check_close(f"{what} K1 rank {r}", outs[-1], flash_plain(*args),
+                                       "bfloat16"))
+        dargs = (dq[:, :, hs], dk[:, :, ks], dv[:, :, ks])
+        douts.append(ops.decode_attention(*[a.contiguous() for a in dargs], dl))
+        worst = max(worst, check_close(f"{what} K2 rank {r}", douts[-1],
+                                       decode_plain(*dargs, dl), "bfloat16"))
+    check_close(f"{what} K1 ranks together", torch.cat(outs, dim=2), flash_plain(q, k, v),
+                "bfloat16")
+    check_close(f"{what} K2 ranks together", torch.cat(douts, dim=2),
+                decode_plain(dq, dk, dv, dl), "bfloat16")
+    log("mesh", f"{what}: K1 (B={b}, S={s}) and K2 (M={m_len}, lengths "
+        f"{int(lengths.min())}..{int(lengths.max())}) on each of {model} ranks' heads (Hq "
+        f"{lq}, Hkv {lkv}, D {d}) within bf16 tol of their plain versions, max_abs_err "
+        f"{worst:.3e}; the ranks together equal the plain version on {hq}/{hkv} heads")
+
+
+def phase_mesh() -> dict:
+    """Phase 11: the sharded prefill and decode bundles on a (1, 1) NCCL mesh
+    against the same bundles on one device, then K1 and K2 at the local
+    shapes of a "model" axis (see the module docstring)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.steps import init_model
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    out = {}
+    try:
+        mesh = make_local_mesh(1, 1)
+        log("mesh", f"{mesh}: axes {mesh.mesh_dim_names}, backend {dist.get_backend()}, "
+            f"world size {dist.get_world_size()}")
+        for arch in MESH_ARCHS:
+            t0 = time.perf_counter()
+            cfg = get_config(arch, attention_impl="pallas")
+            steps, m_len = DECODE_STEPS, MESH_PROMPT + DECODE_STEPS
+            _, params = init_model(cfg, seed=0, max_seq=m_len, device="cuda")
+            g = torch.Generator(device="cuda").manual_seed(11)
+            tokens = torch.randint(1, cfg.vocab, (MESH_BATCH, MESH_PROMPT), generator=g,
+                                   device="cuda", dtype=torch.int32)
+            plain = _mesh_run(arch, cfg, None, params, tokens, steps)
+            sharded = _mesh_run(arch, cfg, mesh, params, tokens, steps)
+            want = dict.fromkeys(ops.KERNELS, 0)
+            want.update(flash_attention=cfg.n_layers, decode_attention=cfg.n_layers * steps)
+            if cfg.family == "hybrid":
+                want["ssm_scan"] = cfg.n_layers
+            for name, run in (("mesh=None", plain), ("mesh", sharded)):
+                if run["launches"] != want:
+                    raise AssertionError(f"mesh {arch} {name}: launches {run['launches']}, "
+                                         f"want {want}")
+            if not torch.equal(sharded["tokens"], plain["tokens"]):
+                raise AssertionError(f"mesh {arch}: greedy tokens differ from mesh=None's")
+            err = check_close(f"mesh {arch} logits", sharded["logits"], plain["logits"],
+                              "bfloat16")
+            if not bool(torch.isfinite(plain["logits"]).all()):
+                raise AssertionError(f"mesh {arch}: non-finite logits")
+            predicted = {m: _mesh_gather_bytes(cfg, MESH_BATCH, m_len, m)
+                         for m in MESH_MODEL_AXES[arch]}
+            log("mesh", f"{arch} bf16 full width and depth ({cfg.n_layers} layers), B="
+                f"{MESH_BATCH}, {MESH_PROMPT}-token prompts, {steps} greedy steps: tokens "
+                f"equal to mesh=None's ({MESH_BATCH} x {steps}, first row "
+                f"{sharded['tokens'][0, :8].tolist()}...), logits max_abs_err {err:.3e}; "
+                f"launches {sharded['launches']} on both")
+            log("mesh", f"{arch}: prefill {sharded['prefill_ms']:.2f} ms on the mesh vs "
+                f"{plain['prefill_ms']:.2f} ms with mesh=None; decode step "
+                f"{sharded['step_ms']:.2f} ms vs {plain['step_ms']:.2f} ms "
+                f"(x{sharded['step_ms'] / plain['step_ms']:.2f}: DTensor's host overhead, "
+                f"{(sharded['step_ms'] - plain['step_ms']) / cfg.n_layers:.2f} ms a layer)")
+            log("mesh", f"{arch}: bytes gathered per decode step on (1, 1): "
+                f"{sharded['gathered_per_step']:.0f} (prefill {sharded['prefill_gathered']:.0f});"
+                " a rank of a (1, m) mesh would gather " + ", ".join(
+                    f"m={m}: {v:.0f} ({v / 2**20:.2f} MiB)" for m, v in predicted.items())
+                + f"; {time.perf_counter() - t0:.1f}s with init")
+            out[arch] = {k: v for k, v in sharded.items() if k not in ("logits", "tokens")}
+            out[arch]["plain"] = {k: plain[k] for k in ("prefill_ms", "step_ms", "launches")}
+            del params, plain, sharded
+            torch.cuda.empty_cache()
+        for arch, model in (("gemma-2b", 2), ("gemma-2b", 4), ("hymba-1.5b", 5)):
+            cfg = get_config(arch)
+            _hold_local_heads(f"{arch} at model={model}", cfg.n_heads, cfg.n_kv_heads,
+                              cfg.resolved_head_dim, model)
+    finally:
+        dist.destroy_process_group()
     return out
 
 
@@ -3111,6 +3325,9 @@ def _phases(t_start: float, smi: str, proc) -> int:
     t0 = time.perf_counter()
     phase_cells(_Dryrun(proc), kernels)
     log("cells", f"phase took {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    phase_mesh()
+    log("mesh", f"phase took {time.perf_counter() - t0:.1f}s")
     log("done", f"all phases passed in {time.perf_counter() - t_start:.1f}s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -32,12 +32,18 @@ device, a call under grad mode with an input that requires grad.  Training
 runs ``attention_impl="xla"``, which reaches no kernel on any family: the
 hybrid block's scans train through the reference's differentiable scans in
 the model code (``models/ssm.py``), and K3 and K4 serve its prefill alone.
+
+Each wrapper refuses a ``DTensor`` with a ``TypeError``: a launch reads
+``data_ptr()``, which a DTensor does not hold as its local shard.  On a mesh
+the model calls the wrappers on each rank's local tensors, inside
+``local_map`` (``repro_torch.sharding.local_call``).
 """
 from __future__ import annotations
 
 from typing import Callable, Dict, List, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.decode_attention import check_args as _check_decode
@@ -97,14 +103,18 @@ def no_backward_message(name: str) -> str:
             "which calls no kernel")
 
 
-def _refuse_grad(name: str, *tensors: torch.Tensor) -> None:
+def _refuse(name: str, *tensors: torch.Tensor) -> None:
+    """Refuse a DTensor argument, and a call that autograd would record."""
+    if any(isinstance(t, DTensor) for t in tensors):
+        raise TypeError(f"{name}: a DTensor argument; call the wrapper on the local "
+                        "tensors (repro_torch.sharding.local_call), never on a DTensor")
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(no_backward_message(name))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Causal GQA attention.  q: (B,S,Hq,D); k,v: (B,S,Hkv,D) -> (B,S,Hq,D)."""
-    _refuse_grad("flash_attention", q, k, v)
+    _refuse("flash_attention", q, k, v)
     if q.device.type == "cpu":
         _check_flash(q, k, v)
         out = _ref.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
@@ -124,7 +134,7 @@ def decode_attention(q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tens
                      lengths: torch.Tensor) -> torch.Tensor:
     """q: (B,1,Hq,D); cache_{k,v}: (B,M,Hkv,D); lengths (B,) int32 ->
     (B,1,Hq,D).  Cache slots at or past ``lengths`` are masked."""
-    _refuse_grad("decode_attention", q, cache_k, cache_v)
+    _refuse("decode_attention", q, cache_k, cache_v, lengths)
     if q.device.type == "cpu":
         _check_decode(q, cache_k, cache_v, lengths)
         out = _ref.decode_attention_ref(q[:, 0], cache_k.transpose(1, 2),
@@ -144,7 +154,7 @@ def ssm_scan(dA: torch.Tensor, dBx: torch.Tensor, C: torch.Tensor
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K4: h_t = dA_t * h_{t-1} + dBx_t, y_t = <h_t, C_t>.  dA, dBx:
     (B,S,di,N) f32; C: (B,S,N) f32 -> (y (B,S,di), h_last (B,di,N)) f32."""
-    _refuse_grad("ssm_scan", dA, dBx, C)
+    _refuse("ssm_scan", dA, dBx, C)
     if dA.device.type == "cpu":
         _check_scan(dA, dBx, C)
         return _ref.ssm_scan_ref(dA, dBx, C)
@@ -163,7 +173,7 @@ def ssm_scan_fused(delta: torch.Tensor, B: torch.Tensor, C: torch.Tensor, x: tor
     """K3: the scan with its discretisation (dA = exp(delta A), dBx = delta B
     x) fused in.  delta, x: (B,S,di); B, C: (B,S,N); A: (di,N); f32 ->
     (y (B,S,di), h_last (B,di,N)) f32."""
-    _refuse_grad("ssm_scan_fused", delta, B, C, x, A)
+    _refuse("ssm_scan_fused", delta, B, C, x, A)
     if delta.device.type == "cpu":
         _check_fused(delta, B, C, x, A)
         return _ref.ssm_scan_ref(*_ref.ssm_discretize(delta, B, x, A), C)

@@ -11,8 +11,8 @@ Usage:
 
 Differences from the reference:
 - One device: the record says ``n_chips`` 1; ``--multi-pod``,
-  ``--both-meshes`` and the strategy's shardings wait for distribution
-  (ROADMAP.md Queue 1 item 5), and the collective statistics are zeros.
+  ``--both-meshes`` and the strategy's shardings wait for ROADMAP.md Queue 1
+  item 5a-ii, and the collective statistics are zeros.
   ``strategy`` is recorded as the reference's default for the cell (or
   ``run_cell``'s argument); the CLI has no ``--strategy``, since on one
   device no choice changes the count.
@@ -25,7 +25,7 @@ Differences from the reference:
   ``flops_per_dev``).
 - ``--perf`` applies the reference's overrides whole.  granite-moe's
   ``train_4k`` one asks for ``routing_impl="ep_gather"``, expert
-  parallelism, which the port refuses until Queue 1 item 5: that cell then
+  parallelism, which the port refuses until Queue 1 item 5b: that cell then
   fails with the refusal's message.
 """
 from __future__ import annotations
@@ -80,7 +80,7 @@ def default_strategy(arch: str, shape_name: str) -> str:
 def count_cell(cfg: ModelConfig, shape: ShapeConfig) -> StepCost:
     """The cell's step (``make_step``, remat on for training) run once on its
     ``meta`` input specs under a ``StepCost``."""
-    bundle = make_step(cfg, shape)
+    bundle = make_step(cfg, None, shape)
     with StepCost(bundle.input_specs) as cost:
         out = bundle.fn(**bundle.input_specs)
     cost.output_bytes = cost.live - cost.input_bytes
@@ -113,7 +113,7 @@ def account(arch: str, cfg: ModelConfig, shape: ShapeConfig, strategy: str,
         "kernel_bytes": cost.kernel_bytes,
         "collectives": coll,
         "collectives_scanned": no_collectives(),
-        "collectives_note": "one device: no collective until distribution (Queue 1 item 5)",
+        "collectives_note": "one device: no collective until Queue 1 item 5a-ii",
         "memory": mem,
         "roofline": terms,
         "model_flops_global": mf,

@@ -28,13 +28,22 @@ encdec and ssm families ignore ``window``, as in the reference.
 Unlike the reference, ``decode_step`` writes the new K/V and recurrent states
 into the cache it is given, in place, and returns that cache with a new
 ``pos`` (xlstm returns new state dicts).
+
+On a mesh (DTensor params and inputs, ``steps.py``; the dense and hybrid
+families, ``MESH_FAMILIES``) ``prefill``'s cache is born a DTensor with the
+placements of ``sharding.cache_pspecs``, and every write keeps them: a
+layer's K/V and state are re-placed to the cache's layout before they are
+copied in, and ``decode_step`` writes each rank's own shard
+(``layers.attn_decode``).
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
+from repro_torch import sharding as SH
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as SSM
@@ -45,11 +54,34 @@ from repro_torch.models.transformer import (_apply_block, _embed_inputs, _ffn, _
 
 Params = Dict[str, Any]
 
+# the families that run on a mesh; the others wait for ROADMAP.md Queue 1
+# item 5a-ii
+MESH_FAMILIES = ("dense", "hybrid")
+
+
+def check_mesh_family(cfg: ModelConfig) -> None:
+    """Raise for a family whose paths are not ported to a mesh (any mesh,
+    (1, 1) included: they build plain tensors that DTensor refuses to mix)."""
+    if cfg.family not in MESH_FAMILIES:
+        raise NotImplementedError(
+            f"family {cfg.family!r} ({cfg.name}) does not run on a mesh yet: ROADMAP.md "
+            f"Queue 1 item 5a-ii brings it; on a mesh the port runs {MESH_FAMILIES}")
+
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, window: int = 0,
-               device="cuda") -> Dict[str, Any]:
+               device="cuda", mesh=None) -> Dict[str, Any]:
     """An empty cache of ``batch`` rows; its K/V hold M = min(window,
-    max_len) slots when ``window`` > 0, else ``max_len``."""
+    max_len) slots when ``window`` > 0, else ``max_len``.  With a ``mesh``
+    (a ``DeviceMesh``) every leaf is a DTensor of zeros placed by
+    ``sharding.cache_pspecs``, each rank allocating its shard alone."""
+    if mesh is not None:
+        from torch.distributed.tensor import zeros
+
+        check_mesh_family(cfg)
+        spec = cache_specs(cfg, batch, max_len, window)
+        return SH.tree_map(lambda t, p: zeros(t.shape, dtype=t.dtype, device_mesh=mesh,
+                                              placements=SH.placements(p, mesh)),
+                           spec, SH.cache_pspecs(cfg, spec, mesh))
     check_family(cfg)
     if cfg.family == "ssm":
         blocks = [XL.init_mlstm_state(cfg, batch, device=device) if kind == "mlstm"
@@ -97,16 +129,22 @@ def prefill(params: Params, cfg: ModelConfig, batch_inputs: Dict[str, torch.Tens
     b, s, _ = x.shape
     if cfg.family == "encdec" and s > max_len:  # the reference does not truncate this prompt
         raise ValueError(f"encdec prompt of {s} tokens is longer than max_len={max_len}")
-    cache = init_cache(cfg, b, max_len, window, device=x.device)
+    mesh = x.device_mesh if isinstance(x, DTensor) else None
+    cache = init_cache(cfg, b, max_len, window, device=x.device, mesh=mesh)
     m = cache["k"].shape[2]
     for li in range(cfg.n_layers):
         x, (k, v), state, _ = _apply_block(layer_params(params["blocks"], li), x, positions,
                                            cfg, enc, window=window)
         for key, t in state.items():  # conv and ssm (hybrid), cross_k and cross_v (encdec)
-            cache[key][li] = t
+            _store(cache[key][li], t)
         if s >= m:  # keep the last m positions
-            cache["k"][li] = k[:, -m:]
-            cache["v"][li] = v[:, -m:]
+            _store(cache["k"][li], k[:, -m:])
+            _store(cache["v"][li], v[:, -m:])
+        elif mesh is not None:  # the whole layer, its empty slots zero: the
+            # slots of an M-sharded cache are not a view of a slice
+            empty = SH.zeros_beside(k, (b, m - s) + tuple(k.shape[2:]), 1)
+            _store(cache["k"][li], torch.cat([k, empty], dim=1))
+            _store(cache["v"][li], torch.cat([v, empty], dim=1))
         else:
             cache["k"][li, :, :s] = k
             cache["v"][li, :, :s] = v
@@ -114,6 +152,14 @@ def prefill(params: Params, cfg: ModelConfig, batch_inputs: Dict[str, torch.Tens
     # the norm is per token, so normalising only the last one is the same
     x = L.apply_norm(params["ln_f"], x[:, -1:], cfg.norm)
     return L.unembed(params["embed"], x, cfg), cache
+
+
+def _store(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """Copy ``src`` into the cache view ``dst`` in place; on a mesh ``src`` is
+    first re-placed to ``dst``'s placements, so each rank writes its shard."""
+    if isinstance(dst, DTensor):
+        src = SH.relayout(src, dst.placements)
+    dst.copy_(src)
 
 
 def _prefill_xlstm(params: Params, cfg: ModelConfig, batch_inputs: Dict[str, torch.Tensor]
@@ -170,7 +216,7 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Dict[str, Any],
         x, state = _decode_block(layer_params(params["blocks"], li), x, layer, pos, cfg,
                                  write_pos)
         for key, t in state.items():
-            cache[key][li] = t
+            _store(cache[key][li], t)
     new_cache = dict(cache)
     new_cache["pos"] = pos + 1
     x = L.apply_norm(params["ln_f"], x, cfg.norm)

@@ -5,6 +5,19 @@ Port of ``repro.models.layers``, with the same convention:
 ``<layer>_defs(cfg)`` returns a dict of ParamDef and ``<layer>(params, x,
 ...)`` applies it.  Softmax and norms run in f32 and cast back to the
 activation dtype, as in the reference.
+
+On a mesh (the sharded step bundles, ``steps.py``) the activations, params
+and cache are DTensors, and DTensor propagates their placements through
+every op here.  Two things it cannot do are done by hand.  Constants made
+from the device (``arange`` masks and frequencies) are wrapped as
+replicated DTensors (``sharding.replicate_like``): DTensor refuses to mix
+plain tensors in.  And a kernel wrapper only ever sees plain tensors: K1,
+K2 and the cache write around K2 run on each rank's local tensors in
+``local_map`` islands (``sharding.local_call``), after the operands are
+re-placed to a layout in which the local call is exact
+(``_attention_layouts``).  A cache stored sharded on head_dim (an MQA
+cache) or on M (``decode_seq_shard``) is gathered for K2 so; the bytes are
+counted in ``sharding.relayout.gathered_bytes``.
 """
 from __future__ import annotations
 
@@ -13,7 +26,9 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from repro_torch import sharding as SH
 from repro_torch.kernels import ops as kops
 from repro_torch.models.params import ParamDef
 
@@ -64,7 +79,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     if theta <= 0:
         return x
     half = x.shape[-1] // 2
-    ar = torch.arange(0, half, dtype=torch.float32, device=x.device)
+    ar = SH.replicate_like(torch.arange(0, half, dtype=torch.float32, device=x.device), x)
     freqs = torch.exp(-math.log(theta) * ar / half)
     ang = positions.float()[..., None] * freqs  # (B,S,half), f32 from int positions
     cos = torch.cos(ang)[:, :, None, :]
@@ -157,11 +172,11 @@ def _blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg,
     b, s, hq, d = q.shape
     bq = min(cfg.attention_block_q, s)
     pad = (-s) % bq
-    if pad:
-        q = F.pad(q, (0, 0, 0, 0, 0, pad))
+    if pad:  # zero queries (F.pad has no sound DTensor rule in every torch)
+        q = torch.cat([q, SH.zeros_beside(q, (b, pad) + tuple(q.shape[2:]), 1)], dim=1)
     n_rep = cfg.n_heads // cfg.n_kv_heads
-    kt = torch.arange(s, device=q.device)[None, :]
-    rows = torch.arange(bq, device=q.device)[:, None]
+    kt = SH.replicate_like(torch.arange(s, device=q.device)[None, :], q)
+    rows = SH.replicate_like(torch.arange(bq, device=q.device)[:, None], q)
     outs = []
     for lo in range(0, s + pad, bq):
         scores = _gqa_scores(q[:, lo:lo + bq], k, n_rep, cfg.resolved_head_dim)
@@ -172,12 +187,105 @@ def _blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg,
     return torch.cat(outs, dim=1)[:, :s]
 
 
-def _maybe_seq_shard(x: torch.Tensor, cfg) -> torch.Tensor:
-    """The identity: ``attention_partitioning="seq"`` constrains q to be
-    sharded over the sequence on a mesh (reference layers.py:150), and one
-    device has no mesh.  Sharding waits for distribution (ROADMAP.md Queue 1
-    item 5)."""
-    return x
+def _maybe_seq_shard(x: torch.Tensor, cfg, seq_axis: int = 1) -> torch.Tensor:
+    """attention_partitioning="seq": re-place x (a DTensor) with its seq dim
+    over "model" and its batch over the dp axes where that divides
+    (reference layers.py:150).  The identity without an installed mesh
+    (``parallel.ep.current_mesh``), for a plain tensor, or when the seq dim
+    does not divide."""
+    if getattr(cfg, "attention_partitioning", "auto") != "seq":
+        return x
+    from repro_torch.parallel.ep import current_mesh
+
+    mesh = current_mesh()
+    if mesh is None or not isinstance(x, DTensor):
+        return x
+    shape = SH.mesh_shape(mesh)
+    if "model" not in shape or x.shape[seq_axis] % shape["model"] != 0:
+        return x
+    dp = SH.dp_axes(mesh)
+    dpsz = math.prod(shape[a] for a in dp)
+    entries: list = [None] * x.dim()
+    if x.shape[0] % dpsz == 0 and dpsz > 1:
+        entries[0] = dp
+    entries[seq_axis] = "model"
+    return SH.relayout(x, SH.placements(SH.P(*entries), mesh))
+
+
+def _attention_layouts(mesh, b: int, hq: int, hkv: int) -> Tuple[tuple, tuple, tuple]:
+    """(q and out, k and v, lengths) placements under which K1 and K2 on each
+    rank's local tensors compute exactly that rank's slice of the result:
+    the batch over the dp axes where it divides; the heads over "model" when
+    Hq and Hkv both divide (each rank keeps whole GQA groups), q's alone
+    when Hkv is 1 (MQA: every rank needs the one kv head), else no head
+    split (every rank computes every head)."""
+    shape = SH.mesh_shape(mesh)
+    msz = shape.get("model", 1)
+    bt = "dp" if b % math.prod(shape[a] for a in SH.dp_axes(mesh)) == 0 else None
+    qh = "model" if hq % msz == 0 and (hkv % msz == 0 or hkv == 1) else None
+    kvh = "model" if qh and hkv % msz == 0 else None
+    return (SH.kernel_layout(mesh, (bt, None, qh, None)),
+            SH.kernel_layout(mesh, (bt, None, kvh, None)), SH.kernel_layout(mesh, (bt,)))
+
+
+def _flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """K1, on a mesh in a ``local_map`` island."""
+    if not isinstance(q, DTensor):
+        return kops.flash_attention(q, k, v)
+    qp, kvp, _ = _attention_layouts(q.device_mesh, q.shape[0], q.shape[2], k.shape[2])
+    return SH.local_call(kops.flash_attention, (qp, kvp, kvp), qp, q, k, v)
+
+
+def _flash_decode(q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
+                  valid: torch.Tensor) -> torch.Tensor:
+    """K2, on a mesh in a ``local_map`` island, the cache first gathered to
+    the kernel's layout where it is stored otherwise."""
+    if not isinstance(q, DTensor):
+        return kops.decode_attention(q, cache_k, cache_v, valid)
+    qp, kvp, lp = _attention_layouts(q.device_mesh, q.shape[0], q.shape[2], cache_k.shape[2])
+    return SH.local_call(kops.decode_attention, (qp, kvp, kvp, lp), qp,
+                         q, cache_k, cache_v, valid)
+
+
+def _write_slot(cache_k: torch.Tensor, cache_v: torch.Tensor, k_new: torch.Tensor,
+                v_new: torch.Tensor, write_pos: torch.Tensor, lo: int = 0
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Write row b's new K/V (B,1,Hkv,D) in place at slot write_pos[b] - lo
+    of the caches (B,M,Hkv,D), whose slots hold positions lo..lo+M-1.  The
+    reference writes with a one-hot blend over all M slots; here the one
+    slot is written.  A row whose slot lies outside rewrites its old value
+    (no host sync to find those rows)."""
+    b, m = cache_k.shape[:2]
+    rows = torch.arange(b, device=cache_k.device)
+    local = write_pos - lo if lo else write_pos  # positions are never negative
+    in_range = ((local >= 0) & (local < m) if lo else local < m)[:, None, None]
+    slot = local.clamp(0, m - 1).long()
+    cache_k[rows, slot] = torch.where(in_range, k_new[:, 0], cache_k[rows, slot])
+    cache_v[rows, slot] = torch.where(in_range, v_new[:, 0], cache_v[rows, slot])
+    return cache_k, cache_v
+
+
+def _write_slot_on_mesh(cache_k: DTensor, cache_v: DTensor, k_new: DTensor, v_new: DTensor,
+                        write_pos: DTensor) -> None:
+    """``_write_slot`` on each rank's local shard of the caches, in their
+    stored placements: the new K/V are placed as the cache is (an M shard
+    of the cache needs the whole new row) and each rank writes the slots it
+    holds."""
+    mesh = cache_k.device_mesh
+    cp = tuple(cache_k.placements)
+    kp = tuple(Replicate() if p == Shard(1) else p for p in cp)
+    wp = tuple(p if p == Shard(0) else Replicate() for p in cp)
+    seq_dims = [i for i, p in enumerate(cp) if p == Shard(1)]
+
+    def write(ck, cv, kn, vn, wpos):
+        shard = 0
+        coord = mesh.get_coordinate()
+        for i in seq_dims:  # this rank's M shard, major to minor
+            shard = shard * mesh.size(i) + coord[i]
+        return _write_slot(ck, cv, kn, vn, wpos, lo=shard * ck.shape[1])
+
+    SH.local_call(write, (cp, cp, kp, kp, wp), (cp, cp), cache_k, cache_v, k_new, v_new,
+                  write_pos)
 
 
 def attn_forward(p: Params, x: torch.Tensor, positions: torch.Tensor, cfg,
@@ -212,14 +320,15 @@ def attn_forward(p: Params, x: torch.Tensor, positions: torch.Tensor, cfg,
     if impl == "pallas" and self_causal and window == 0:
         # K1: the CUDA flash-attention kernel for CUDA tensors, its plain
         # version for CPU tensors
-        out = kops.flash_attention(q, k, v)
+        out = _flash(q, k, v)
     elif impl in ("blockwise", "blockwise_u") and self_causal:
         out = _blockwise_attention(_maybe_seq_shard(q, cfg), k, v, cfg, window)
     else:
         mask = None
         if self_causal:
-            iq = torch.arange(q.shape[1], device=x.device)[:, None]
-            ik = torch.arange(k.shape[1], device=x.device)[None, :]
+            q = _maybe_seq_shard(q, cfg)
+            iq = SH.replicate_like(torch.arange(q.shape[1], device=x.device)[:, None], q)
+            ik = SH.replicate_like(torch.arange(k.shape[1], device=x.device)[None, :], q)
             mask = ik <= iq
             if window > 0:
                 mask = mask & (ik > iq - window)
@@ -249,26 +358,23 @@ def attn_decode(p: Params, x: torch.Tensor, cache_k: torch.Tensor, cache_v: torc
     if cross:
         out = _plain_attention(q, cache_k, cache_v, None, cfg)
         return torch.einsum("bshk,hkd->bsd", out, p["wo"]), (cache_k, cache_v)
-    b, m = x.shape[0], cache_k.shape[1]
+    m = cache_k.shape[1]
     q = apply_rope(q, pos[:, None], cfg.rope_theta)
     k_new = apply_rope(_project(x, p["wk"]), pos[:, None], cfg.rope_theta)
     v_new = _project(x, p["wv"])
-    # The reference writes with a one-hot blend over all M slots; here the
-    # one slot is written in place.  Out-of-range rows rewrite their old
-    # value (no host sync to find them).
     if write_pos is None:
         write_pos = pos
-    rows = torch.arange(b, device=x.device)
-    in_range = (write_pos < m)[:, None, None]
-    slot = write_pos.clamp(max=m - 1).long()
-    cache_k[rows, slot] = torch.where(in_range, k_new[:, 0], cache_k[rows, slot])
-    cache_v[rows, slot] = torch.where(in_range, v_new[:, 0], cache_v[rows, slot])
+    if isinstance(cache_k, DTensor):
+        _write_slot_on_mesh(cache_k, cache_v, k_new, v_new, write_pos)
+    else:
+        _write_slot(cache_k, cache_v, k_new, v_new, write_pos)
     valid = torch.clamp(pos + 1, max=m).to(torch.int32)
     if impl == "pallas":
         # K2: the CUDA flash-decode kernel (plain version on the CPU)
-        out = kops.decode_attention(q, cache_k, cache_v, valid)
+        out = _flash_decode(q, cache_k, cache_v, valid)
     else:
-        mask = torch.arange(m, device=x.device)[None, :] < valid[:, None]  # (B,M)
+        ar = SH.replicate_like(torch.arange(m, device=x.device), valid)
+        mask = ar[None, :] < valid[:, None]  # (B,M)
         out = _plain_attention(q, cache_k, cache_v, mask[:, None, None, None, :], cfg)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"]), (cache_k, cache_v)
 

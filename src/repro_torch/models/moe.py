@@ -156,8 +156,8 @@ def apply_moe(p: Params, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tens
         out, aux = moe_dropping(p, x, cfg)
     elif impl in ("ep_shard_map", "ep_gather"):
         raise NotImplementedError(
-            f"routing_impl={impl!r} is expert parallelism, which waits for distribution "
-            "(ROADMAP.md Queue 1 item 5); the port has 'dense' and 'dropping'")
+            f"routing_impl={impl!r} is expert parallelism, which waits for ROADMAP.md "
+            "Queue 1 item 5b; the port has 'dense' and 'dropping'")
     else:
         raise ValueError(impl)
     if cfg.moe.n_shared_experts:

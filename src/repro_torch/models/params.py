@@ -133,8 +133,16 @@ def _tensor_from_numpy(a: np.ndarray, device) -> torch.Tensor:
     return t.to(device)
 
 
-def params_from_numpy(tree: Any, device="cuda") -> Any:
+def params_from_numpy(tree: Any, device="cuda", mesh=None, specs: Any = None) -> Any:
     """Nested dicts/lists of numpy arrays -> the same structure of tensors,
-    same keys, shapes and dtypes (stacked leading L dims stay)."""
+    same keys, shapes and dtypes (stacked leading L dims stay).  With a
+    ``mesh`` (a ``DeviceMesh``) each tensor is then placed by its spec in
+    ``specs`` (``sharding.param_pspecs``): a rank holds its shard of the same
+    values."""
     device = torch.device(device)
-    return tree_map(lambda a: _tensor_from_numpy(a, device), tree)
+    out = tree_map(lambda a: _tensor_from_numpy(a, device), tree)
+    if mesh is None:
+        return out
+    from repro_torch.sharding import distribute
+
+    return distribute(out, mesh, specs)

@@ -20,14 +20,24 @@ no backward.  ``"assoc"`` is one associative scan over S
 (``_associative_scan``); ``"chunked"`` / ``"chunked_u"`` is
 ``_chunked_selective_scan``, an associative scan within each chunk of
 ``cfg.ssm.chunk`` steps plus the carried state's prefix correction.
+
+On a mesh (DTensor inputs, ``steps.py``) K3 and K4 run in ``local_map``
+islands on each rank's local ``d_inner`` channels, the batch over the dp
+axes where it divides: the recurrence is per channel, so the local scans
+are exact.  Their outputs keep the layout of the cache's ``ssm`` state
+(``sharding.cache_pspecs``).  The decode step is plain DTensor ops.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
 
+import math
+
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
+from repro_torch import sharding as SH
 from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import adtype
 from repro_torch.models.params import ParamDef
@@ -61,7 +71,7 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     where state holds the last k-1 inputs (B,k-1,di)."""
     k, s = w.shape[0], x.shape[1]
     if state is None:
-        state = torch.zeros((x.shape[0], k - 1, x.shape[2]), dtype=x.dtype, device=x.device)
+        state = SH.zeros_beside(x, (x.shape[0], k - 1, x.shape[2]), 1)
     xp = torch.cat([state, x], dim=1)  # (B, S+k-1, di)
     y = xp[:, 0:s] * w[0]  # summed tap by tap, in the reference's order
     for i in range(1, k):
@@ -150,12 +160,33 @@ def ssm_forward(p: Params, x: torch.Tensor, cfg, train: bool = False
     elif train:
         y, h_last = _chunked_selective_scan(delta, B, C, xf, A, cfg.ssm.chunk)
     elif impl == "assoc":
-        y, h_last = kops.ssm_scan(*_discretize(delta, B, xf, A), C)  # K4
+        y, h_last = _scan(kops.ssm_scan, *_discretize(delta, B, xf, A), C)  # K4
     else:
-        y, h_last = kops.ssm_scan_fused(delta, B, C, xf, A)  # K3
+        y, h_last = _scan(kops.ssm_scan_fused, delta, B, C, xf, A)  # K3
     y = y + p["D"] * xf
     y = y.to(x.dtype) * F.silu(z)
     return y @ p["out_proj"], {"conv": conv_state, "ssm": h_last}
+
+
+def _scan(kernel, *args: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4 ``(dA, dBx, C)`` or K3 ``(delta, B, C, x, A)``; on a mesh in a
+    ``local_map`` island, each rank on its local channels."""
+    if not isinstance(args[0], DTensor):
+        return kernel(*args)
+    mesh, b, di = args[0].device_mesh, args[0].shape[0], args[0].shape[2]
+    shape = SH.mesh_shape(mesh)
+    bt = "dp" if b % math.prod(shape[a] for a in SH.dp_axes(mesh)) == 0 else None
+    ch = "model" if di % shape.get("model", 1) == 0 else None
+
+    def lay(*spec):
+        return SH.kernel_layout(mesh, spec)
+
+    per_step = lay(bt, None, None)  # B, C: (B,S,N), every channel's
+    if kernel is kops.ssm_scan:
+        ins = (lay(bt, None, ch, None), lay(bt, None, ch, None), per_step)
+    else:
+        ins = (lay(bt, None, ch), per_step, per_step, lay(bt, None, ch), lay(ch, None))
+    return SH.local_call(kernel, ins, (lay(bt, None, ch), lay(bt, ch, None)), *args)
 
 
 def ssm_decode(p: Params, x: torch.Tensor, state: Dict[str, torch.Tensor], cfg

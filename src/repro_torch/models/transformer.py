@@ -44,6 +44,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import sharding as SH
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
@@ -221,7 +222,7 @@ def _embed_inputs(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tenso
     if cfg.family == "encdec":
         x = x + params["dec_pos"]["pos"][None, :x.shape[1]]
     b, s, _ = x.shape
-    return x, _positions(b, s, x.device), tokens
+    return x, SH.replicate_like(_positions(b, s, x.device), x), tokens
 
 
 def encode(params: Params, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:

@@ -6,10 +6,18 @@ CPU, and an error, never a quiet CPU run, when there is no card.
 A bundle's ``input_specs`` are ``meta`` tensors (shapes and dtypes, no
 storage), the stand-ins of the reference's ``ShapeDtypeStruct``s: calling
 ``fn(**input_specs)`` runs the step on ``meta``, which is what the dry-run
-does (``launch/dryrun.py``).  The reference's bundles also carry
-``in_shardings`` / ``out_shardings`` and take a mesh and a ``strategy``;
-the port's run on one device and take none of those until distribution is
-ported (ROADMAP.md Queue 1 item 5).
+does (``launch/dryrun.py``).
+
+The builders take the reference's ``(cfg, mesh, shape, strategy)``.
+``mesh=None`` is one device: plain tensors, no shardings.  On a mesh (a
+``DeviceMesh`` with axes "data" and "model", ``launch/mesh.py``) the
+prefill and decode bundles carry the reference's ``in_shardings`` /
+``out_shardings`` as trees of ``sharding.P``; ``fn`` takes DTensors placed
+by ``in_shardings`` (``sharding.distribute``) and raises for any other
+placement, returns the logits as a full tensor and the cache with
+``out_shardings``' placements, and runs with the mesh installed
+(``parallel.ep.ep_mesh``).  The dense and hybrid families run on a mesh;
+the others, and the train step, wait for ROADMAP.md Queue 1 item 5a-ii.
 """
 from __future__ import annotations
 
@@ -17,22 +25,28 @@ import dataclasses
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
+from repro_torch import sharding as SH
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import decoding as DEC
 from repro_torch.models import transformer as TF
 from repro_torch.models.layers import adtype
 from repro_torch.models.params import abstract_params, init_params, tree_map, tree_paths
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
+from repro_torch.parallel.ep import ep_mesh
 
 
 @dataclasses.dataclass(frozen=True)
 class StepBundle:
-    """One cell's step: ``fn(**input_specs)`` runs it.  ``donate_argnames``
-    are the inputs the step overwrites in place (the reference donates
-    them)."""
+    """One cell's step: ``fn(**input_specs)`` runs it.  ``in_shardings`` /
+    ``out_shardings`` are the specs of ``fn``'s arguments and results (None
+    without a mesh, and for the full logits).  ``donate_argnames`` are the
+    inputs the step overwrites in place (the reference donates them)."""
     fn: Callable
     input_specs: Dict[str, Any]
+    in_shardings: Any = None
+    out_shardings: Any = None
     donate_argnames: Tuple[str, ...] = ()
 
 
@@ -95,48 +109,93 @@ def decode_window(cfg: ModelConfig, shape: ShapeConfig) -> int:
     return cfg.long_window if (shape.name == "long_500k" and cfg.long_window) else 0
 
 
-def make_prefill_step(cfg: ModelConfig, shape: ShapeConfig) -> StepBundle:
-    """``fn(params, batch) -> (last-token logits, cache of seq_len)``, under
-    ``no_grad``."""
+def _specs(cfg: ModelConfig, mesh, shape: ShapeConfig, strategy: str, window: int = 0
+           ) -> Tuple[Any, Any, Any]:
+    """(param, batch, cache) specs of a cell on ``mesh`` (reference
+    steps.py:131-137 and :156-162)."""
+    DEC.check_mesh_family(cfg)
     defs = TF.model_defs(cfg, max_seq=shape.seq_len)
+    return (SH.param_pspecs(defs, SH.make_rules(mesh, strategy), mesh),
+            SH.batch_pspecs(batch_specs(cfg, shape), mesh),
+            SH.cache_pspecs(cfg, DEC.cache_specs(cfg, shape.global_batch, shape.seq_len,
+                                                 window), mesh))
+
+
+def _full(logits: torch.Tensor) -> torch.Tensor:
+    return logits.full_tensor() if isinstance(logits, DTensor) else logits
+
+
+def make_prefill_step(cfg: ModelConfig, mesh, shape: ShapeConfig,
+                      strategy: str = "tp") -> StepBundle:
+    """``fn(params, batch) -> (last-token logits, cache of seq_len)``, under
+    ``no_grad``; on a mesh see the module docstring."""
+    defs = TF.model_defs(cfg, max_seq=shape.seq_len)
+    ins = outs = None
+    if mesh is not None:
+        p_specs, b_specs, c_specs = _specs(cfg, mesh, shape, strategy)
+        ins, outs = (p_specs, b_specs), (None, c_specs)
 
     @torch.no_grad()
     def prefill_step(params, batch):
-        return DEC.prefill(params, cfg, batch, max_len=shape.seq_len)
+        if mesh is not None:
+            SH.check_placed(params, mesh, ins[0], "prefill params")
+            SH.check_placed(batch, mesh, ins[1], "prefill batch")
+        with ep_mesh(mesh):
+            logits, cache = DEC.prefill(params, cfg, batch, max_len=shape.seq_len)
+        return _full(logits), cache
 
-    return StepBundle(fn=prefill_step, input_specs={"params": abstract_params(defs),
-                                                    "batch": batch_specs(cfg, shape)})
+    return StepBundle(fn=prefill_step, in_shardings=ins, out_shardings=outs,
+                      input_specs={"params": abstract_params(defs),
+                                   "batch": batch_specs(cfg, shape)})
 
 
-def make_decode_step(cfg: ModelConfig, shape: ShapeConfig) -> StepBundle:
+def make_decode_step(cfg: ModelConfig, mesh, shape: ShapeConfig,
+                     strategy: str = "tp") -> StepBundle:
     """``fn(params, cache, batch) -> (logits, cache)``: one token a row
     against a cache of seq_len slots (``decode_window`` of them on
-    ``long_500k``), written in place, under ``no_grad``."""
+    ``long_500k``), written in place, under ``no_grad``; on a mesh see the
+    module docstring."""
     window = decode_window(cfg, shape)
     defs = TF.model_defs(cfg, max_seq=shape.seq_len)
+    ins = outs = None
+    if mesh is not None:
+        p_specs, b_specs, c_specs = _specs(cfg, mesh, shape, strategy, window)
+        ins, outs = (p_specs, c_specs, b_specs), (None, c_specs)
 
     @torch.no_grad()
     def decode_step(params, cache, batch):
-        return DEC.decode_step(params, cfg, cache, batch["tokens"], window=window)
+        if mesh is not None:
+            for tree, spec, what in zip((params, cache, batch), ins, ("params", "cache",
+                                                                       "batch")):
+                SH.check_placed(tree, mesh, spec, f"decode {what}")
+        with ep_mesh(mesh):
+            logits, cache = DEC.decode_step(params, cfg, cache, batch["tokens"],
+                                            window=window)
+        return _full(logits), cache
 
     return StepBundle(
-        fn=decode_step,
+        fn=decode_step, in_shardings=ins, out_shardings=outs,
         input_specs={"params": abstract_params(defs),
                      "cache": DEC.cache_specs(cfg, shape.global_batch, shape.seq_len, window),
                      "batch": batch_specs(cfg, shape)},
         donate_argnames=("cache",))
 
 
-def make_step(cfg: ModelConfig, shape: ShapeConfig,
-              opt_cfg: Optional[AdamWConfig] = None) -> StepBundle:
+def make_step(cfg: ModelConfig, mesh, shape: ShapeConfig,
+              opt_cfg: Optional[AdamWConfig] = None, strategy: str = "tp") -> StepBundle:
     """The bundle of a cell of ``shape.kind``.  ``train`` wraps
     ``make_train_step(cfg, opt_cfg)`` (remat on, the reference's default)
-    with the meta params, their ``adamw_init`` and the batch; the other
+    with the meta params, their ``adamw_init`` and the batch, on one device
+    only: on a mesh it raises (ROADMAP.md Queue 1 item 5a-ii).  The other
     kinds ignore ``opt_cfg``."""
     if shape.kind == "prefill":
-        return make_prefill_step(cfg, shape)
+        return make_prefill_step(cfg, mesh, shape, strategy)
     if shape.kind == "decode":
-        return make_decode_step(cfg, shape)
+        return make_decode_step(cfg, mesh, shape, strategy)
+    if mesh is not None:
+        raise NotImplementedError("the sharded train step waits for ROADMAP.md Queue 1 "
+                                  "item 5a-ii (ZeRO-1, the sharded train step); "
+                                  "pass mesh=None for one device")
     params = abstract_params(TF.model_defs(cfg, max_seq=shape.seq_len))
     return StepBundle(
         fn=make_train_step(cfg, opt_cfg),

@@ -113,12 +113,12 @@ def test_bundle_input_specs():
     AdamW state and the batch, and donates the first two; decode donates
     its cache."""
     cfg = TC.get_smoke_config("gemma-2b")
-    train = TS.make_step(cfg, TC.ShapeConfig("t", 16, 2, "train"))
+    train = TS.make_step(cfg, None, TC.ShapeConfig("t", 16, 2, "train"))
     assert list(train.input_specs) == ["params", "opt_state", "batch"]
     assert train.donate_argnames == ("params", "opt_state")
     assert [_shape_dtype(t) for t in tree_leaves(train.input_specs["opt_state"]["mu"])] == \
         [(tuple(t.shape), "float32") for t in tree_leaves(train.input_specs["params"])]
-    decode = TS.make_step(cfg, TC.ShapeConfig("d", 16, 2, "decode"))
+    decode = TS.make_step(cfg, None, TC.ShapeConfig("d", 16, 2, "decode"))
     assert list(decode.input_specs) == ["params", "cache", "batch"]
     assert decode.donate_argnames == ("cache",)
     for bundle in (train, decode):
@@ -157,7 +157,8 @@ def test_prefill_and_decode_bundles_match_jax(arch, shape_name):
     mesh = make_local_mesh(1, 1)
     pre_j = JC.ShapeConfig("prefill_32k", 40, 2, "prefill")
     pre_t = TC.ShapeConfig("prefill_32k", 40, 2, "prefill")
-    jb_pre, tb_pre = JS.make_prefill_step(jcfg, mesh, pre_j), TS.make_prefill_step(tcfg, pre_t)
+    jb_pre = JS.make_prefill_step(jcfg, mesh, pre_j)
+    tb_pre = TS.make_prefill_step(tcfg, None, pre_t)
     _, jp = JS.init_model(jcfg, seed=4, max_seq=40)
     tp = _carry(jp)
     tokens = np.random.default_rng(31).integers(0, jcfg.vocab, (2, 20)).astype(np.int32)
@@ -166,7 +167,8 @@ def test_prefill_and_decode_bundles_match_jax(arch, shape_name):
     np.testing.assert_allclose(_np(tl), _np(jl), **TOL)
     dec_j = JC.ShapeConfig(shape_name, 40, 2, "decode")
     dec_t = TC.ShapeConfig(shape_name, 40, 2, "decode")
-    jb_dec, tb_dec = JS.make_decode_step(jcfg, mesh, dec_j), TS.make_decode_step(tcfg, dec_t)
+    jb_dec = JS.make_decode_step(jcfg, mesh, dec_j)
+    tb_dec = TS.make_decode_step(tcfg, None, dec_t)
     window = TS.decode_window(tcfg, dec_t)
     if window:  # the windowed prefill's cache, for both
         jl, jcache = JDEC.prefill(jp, jcfg, {"tokens": jnp.asarray(tokens)}, 40, window=window)
@@ -203,7 +205,7 @@ def test_train_bundle_matches_jax(arch):
     from repro.optim import adamw as JA
 
     jbundle = JS.make_step(jcfg, make_local_mesh(1, 1), shape_j, opt_cfg=JA.AdamWConfig(**opt))
-    tbundle = TS.make_step(tcfg, shape_t, opt_cfg=TA.AdamWConfig(**opt))
+    tbundle = TS.make_step(tcfg, None, shape_t, opt_cfg=TA.AdamWConfig(**opt))
     _, jp = JS.init_model(jcfg, seed=5, max_seq=16)
     jp = _tame(jp, jcfg)
     tp = _carry(jp)
@@ -271,7 +273,7 @@ def test_counter_on_meta_equals_a_cpu_run(arch, kind):
     same peak live bytes (inputs included), FLOPs and bytes."""
     cfg = TC.get_smoke_config(arch)
     shape = TC.ShapeConfig("x", 24 + cfg.n_img_tokens, 2, kind)
-    bundle = TS.make_step(cfg, shape)
+    bundle = TS.make_step(cfg, None, shape)
     meta = TDRY.count_cell(cfg, shape)
     _, params = TS.init_model(cfg, seed=0, max_seq=shape.seq_len, device="cpu")
     real = {"params": params, "batch": TS.make_synthetic_batch(cfg, shape, 0, device="cpu"),
