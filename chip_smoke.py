@@ -186,10 +186,11 @@ Phases, in order; any failure exits non-zero with its traceback:
                ``local_map`` islands) on a (1, 1) mesh over NCCL, a process
                group of one rank (one card holds no multi-rank mesh: NCCL
                refuses two ranks on a device and gloo has no all-gather of
-               CUDA tensors).  gemma-2b and hymba-1.5b (the default
-               scan, K4) at full width and depth, bf16, B = 8, 512-token
-               prompts, 32 greedy decode steps, each run through the same
-               bundles with ``mesh=None`` first: the tokens equal, the logits within the
+               CUDA tensors).  gemma-2b at full width and depth and
+               hymba-1.5b (the default scan, K4) at full width, its depth
+               cut to MESH_HYBRID_LAYERS for the script's time, bf16, B =
+               8, 512-token prompts, 32 greedy decode steps, each run
+               through the same bundles with ``mesh=None`` first: the tokens equal, the logits within the
                bf16 tolerance, every wrapper's launches equal (counters set
                to 0 before each run: K1 and K4 n_layers, K2 32 x n_layers),
                prefill and step ms of both (the step's DTensor host
@@ -313,9 +314,13 @@ CELL_WINDOW_HELD_S = 4096
 TRAIN_CELL = ("gemma-2b", "train_4k", (2, 1))
 TRAIN_CELL_MAX_BYTES = 70 * 2**30
 PEAK_REL_TOL = 0.10  # the dry-run's peak against torch.cuda.max_memory_allocated
-# phase 11: the sharded bundles on a (1, 1) mesh, at full width and depth
+# phase 11: the sharded bundles on a (1, 1) mesh at full width; hymba-1.5b's
+# depth is cut to MESH_HYBRID_LAYERS to keep the script within 420 s (on one
+# H100 at 700 W, with hymba at full depth, its DTensor decode steps took
+# 8-11 ms of host time a layer and the whole script 412.1-477.4 s)
 MESH_BATCH, MESH_PROMPT = 8, 512
-MESH_ARCHS = ("gemma-2b", "hymba-1.5b")
+MESH_HYBRID_LAYERS = 8
+MESH_RUNS = [("gemma-2b", None), ("hymba-1.5b", MESH_HYBRID_LAYERS)]
 # the "model" axes whose gathered bytes phase 11 logs
 MESH_MODEL_AXES = {"gemma-2b": (2, 4), "hymba-1.5b": (5,)}
 # the dry-run's accounting of phase 10's cells, run in a process of its own
@@ -3178,6 +3183,8 @@ def phase_mesh() -> dict:
     """Phase 11: the sharded prefill and decode bundles on a (1, 1) NCCL mesh
     against the same bundles on one device, then K1 and K2 at the local
     shapes of a "model" axis (see the module docstring)."""
+    import dataclasses
+
     import torch
     import torch.distributed as dist
 
@@ -3193,9 +3200,11 @@ def phase_mesh() -> dict:
         mesh = make_local_mesh(1, 1)
         log("mesh", f"{mesh}: axes {mesh.mesh_dim_names}, backend {dist.get_backend()}, "
             f"world size {dist.get_world_size()}")
-        for arch in MESH_ARCHS:
+        for arch, layers in MESH_RUNS:
             t0 = time.perf_counter()
             cfg = get_config(arch, attention_impl="pallas")
+            if layers:
+                cfg = dataclasses.replace(cfg, n_layers=layers)
             steps, m_len = DECODE_STEPS, MESH_PROMPT + DECODE_STEPS
             _, params = init_model(cfg, seed=0, max_seq=m_len, device="cuda")
             g = torch.Generator(device="cuda").manual_seed(11)
@@ -3219,7 +3228,8 @@ def phase_mesh() -> dict:
                 raise AssertionError(f"mesh {arch}: non-finite logits")
             predicted = {m: _mesh_gather_bytes(cfg, MESH_BATCH, m_len, m)
                          for m in MESH_MODEL_AXES[arch]}
-            log("mesh", f"{arch} bf16 full width and depth ({cfg.n_layers} layers), B="
+            depth = f"depth cut to {layers} layers" if layers else "full depth"
+            log("mesh", f"{arch} bf16 full width, {depth} ({cfg.n_layers} layers), B="
                 f"{MESH_BATCH}, {MESH_PROMPT}-token prompts, {steps} greedy steps: tokens "
                 f"equal to mesh=None's ({MESH_BATCH} x {steps}, first row "
                 f"{sharded['tokens'][0, :8].tolist()}...), logits max_abs_err {err:.3e}; "

@@ -187,7 +187,7 @@ def _blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg,
     return torch.cat(outs, dim=1)[:, :s]
 
 
-def _maybe_seq_shard(x: torch.Tensor, cfg, seq_axis: int = 1) -> torch.Tensor:
+def _maybe_seq_shard(x: torch.Tensor, cfg) -> torch.Tensor:
     """attention_partitioning="seq": re-place x (a DTensor) with its seq dim
     over "model" and its batch over the dp axes where that divides
     (reference layers.py:150).  The identity without an installed mesh
@@ -201,15 +201,11 @@ def _maybe_seq_shard(x: torch.Tensor, cfg, seq_axis: int = 1) -> torch.Tensor:
     if mesh is None or not isinstance(x, DTensor):
         return x
     shape = SH.mesh_shape(mesh)
-    if "model" not in shape or x.shape[seq_axis] % shape["model"] != 0:
+    if "model" not in shape or x.shape[1] % shape["model"] != 0:
         return x
-    dp = SH.dp_axes(mesh)
-    dpsz = math.prod(shape[a] for a in dp)
-    entries: list = [None] * x.dim()
-    if x.shape[0] % dpsz == 0 and dpsz > 1:
-        entries[0] = dp
-    entries[seq_axis] = "model"
-    return SH.relayout(x, SH.placements(SH.P(*entries), mesh))
+    dpsz = SH.dp_size(mesh)
+    bt = "dp" if x.shape[0] % dpsz == 0 and dpsz > 1 else None
+    return SH.relayout(x, SH.kernel_layout(mesh, (bt, "model") + (None,) * (x.dim() - 2)))
 
 
 def _attention_layouts(mesh, b: int, hq: int, hkv: int) -> Tuple[tuple, tuple, tuple]:
@@ -221,7 +217,7 @@ def _attention_layouts(mesh, b: int, hq: int, hkv: int) -> Tuple[tuple, tuple, t
     split (every rank computes every head)."""
     shape = SH.mesh_shape(mesh)
     msz = shape.get("model", 1)
-    bt = "dp" if b % math.prod(shape[a] for a in SH.dp_axes(mesh)) == 0 else None
+    bt = "dp" if b % SH.dp_size(mesh) == 0 else None
     qh = "model" if hq % msz == 0 and (hkv % msz == 0 or hkv == 1) else None
     kvh = "model" if qh and hkv % msz == 0 else None
     return (SH.kernel_layout(mesh, (bt, None, qh, None)),

@@ -31,8 +31,6 @@ from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
 
-import math
-
 import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor
@@ -174,9 +172,8 @@ def _scan(kernel, *args: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     if not isinstance(args[0], DTensor):
         return kernel(*args)
     mesh, b, di = args[0].device_mesh, args[0].shape[0], args[0].shape[2]
-    shape = SH.mesh_shape(mesh)
-    bt = "dp" if b % math.prod(shape[a] for a in SH.dp_axes(mesh)) == 0 else None
-    ch = "model" if di % shape.get("model", 1) == 0 else None
+    bt = "dp" if b % SH.dp_size(mesh) == 0 else None
+    ch = "model" if di % SH.mesh_shape(mesh).get("model", 1) == 0 else None
 
     def lay(*spec):
         return SH.kernel_layout(mesh, spec)

@@ -88,6 +88,11 @@ def dp_axes(mesh: Any) -> Tuple[str, ...]:
     return tuple(a for a in mesh_shape(mesh) if a in ("pod", "data"))
 
 
+def dp_size(mesh: Any) -> int:
+    """Ranks over the data-parallel axes together."""
+    return _axis_size(mesh, dp_axes(mesh))
+
+
 def make_rules(mesh: Any, strategy: str = "tp") -> Dict[str, Any]:
     rules: Dict[str, Any] = {
         "layers": None,
@@ -153,8 +158,7 @@ def param_shardings(defs: Any, rules: Dict[str, Any], mesh: Any) -> Any:
 
 def batch_pspecs(batch_specs: Dict[str, torch.Tensor], mesh: Any) -> Dict[str, P]:
     """The batch's leading dim over the dp axes where it divides."""
-    dp = dp_axes(mesh)
-    dpsz = _axis_size(mesh, dp)
+    dp, dpsz = dp_axes(mesh), dp_size(mesh)
     out = {}
     for k, v in batch_specs.items():
         b = v.shape[0] if v.dim() else 0
@@ -166,8 +170,7 @@ def batch_pspecs(batch_specs: Dict[str, torch.Tensor], mesh: Any) -> Dict[str, P
 def _auto_state_spec(shape: Sequence[int], mesh: Any, batch_dim: int = 0) -> P:
     """Heuristic for recurrent-state leaves: batch over dp, largest remaining
     dim over model."""
-    dp = dp_axes(mesh)
-    dpsz = _axis_size(mesh, dp)
+    dp, dpsz = dp_axes(mesh), dp_size(mesh)
     msz = mesh_shape(mesh).get("model", 1)
     entries: list = [None] * len(shape)
     if len(shape) > batch_dim and shape[batch_dim] % dpsz == 0:
@@ -182,8 +185,7 @@ def _auto_state_spec(shape: Sequence[int], mesh: Any, batch_dim: int = 0) -> P:
 
 def cache_pspecs(cfg, cache_spec: Any, mesh: Any) -> Any:
     """Specs for a decode cache tree (see ``decoding.init_cache``)."""
-    dp = dp_axes(mesh)
-    dpsz = _axis_size(mesh, dp)
+    dp, dpsz = dp_axes(mesh), dp_size(mesh)
     msz = mesh_shape(mesh).get("model", 1)
 
     def kv_spec(s):

@@ -45,7 +45,7 @@ import _torch_threads  # noqa: F401  (one intra-op thread per test worker)
 ROOT = Path(__file__).resolve().parents[1]
 TOL = 2e-4
 B, PROMPT, MAX_LEN, STEPS = 4, 16, 24, 4
-RUN_TIMEOUT = 150  # seconds for one 4-rank run, spawn to exit (~10-20 s here)
+RUN_TIMEOUT = 150  # seconds for one 4-rank run, spawn to exit (13-24 s on 8 CPU cores)
 
 CASES = {
     "gemma-tp-2x2": ("gemma-2b", "tp", (2, 2), {}),
