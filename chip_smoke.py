@@ -202,6 +202,31 @@ Phases, in order; any failure exits non-zero with its traceback:
                2 and 4 (Hq 4 and 2, Hkv 1, D = 256) and hymba-1.5b at 5 (Hq
                5, Hkv 1, D = 64), the ranks' outputs together equal to the
                plain version on all heads.
+12. mesh-train - the sharded train step (``make_train_step`` with a mesh:
+               tp, ZeRO-1, remat; the grads reduced to their params'
+               placements, the moments placed by ``opt_pspecs``) on a (1, 1)
+               NCCL mesh against the same steps with ``mesh=None``, bf16,
+               full width, B x S = MESH_TRAIN_B x MESH_TRAIN_S, each run
+               from ``init_model``'s seed-0 params on the synthetic batches,
+               one run on the card at a time (the other's params kept on
+               the host): gemma-2b 3 steps and hymba-1.5b (its Mamba mixer
+               through the differentiable scans, DTensor in and out) 2, each
+               at the depth MESH_TRAIN_RUNS gives.  Losses and grad norms
+               within the bf16 tolerance (relative), every param within it
+               of its max |x|, no kernel launched; ms a step of both, peak
+               memory, the bytes the grads' reduction and ZeRO-1's gather
+               moved a step (0 on one rank), and those a rank of an
+               (MESH_TRAIN_DP, 1) mesh would move (from the specs).  Then
+               gemma-2b's trained opt state and params saved from the mesh
+               (``CheckpointManager.save`` of DTensors) to an in-memory
+               ``ObjectStore`` and restored, the opt state with its
+               ``opt_pspecs`` and the params onto ``make_prefill_step``'s
+               ``in_shardings[0]`` (reshard-on-load), both bit for bit, with
+               the save and restore times; the restored params prefill B =
+               8 x 512 tokens and take 32 greedy steps through the mesh
+               bundles and ``mesh=None`` (phase 11's ``_mesh_run``): tokens
+               equal, logits within the bf16 tolerance, K1 n_layers and K2
+               32 x n_layers launches on both.
 
 The last three lines are the card's name and power limit, one JSON object
 with the per-kernel numbers, and ``{"ok": true, "device": {...}}``.
@@ -323,6 +348,19 @@ MESH_HYBRID_LAYERS = 8
 MESH_RUNS = [("gemma-2b", None), ("hymba-1.5b", MESH_HYBRID_LAYERS)]
 # the "model" axes whose gathered bytes phase 11 logs
 MESH_MODEL_AXES = {"gemma-2b": (2, 4), "hymba-1.5b": (5,)}
+# phase 12: the sharded train step (tp, ZeRO-1, remat) on a (1, 1) mesh at
+# full width, bf16, B x S tokens a step: (arch, layers (None: the published
+# depth), steps).  gemma-2b's trained state is then checkpointed, restored
+# onto the serving bundles' shardings and served (phase 11's B, prompt and
+# steps).  Both depths are cut for the phase's 45 s and the script's 420 s:
+# on one H100 at 700 W, gemma-2b at its full 18 layers took 67.1 s, 50 s of
+# it the round trip of its 25 GB of params and f32 moments through the
+# in-memory store (~2.4 s a GB), and at 4 layers 29.2 s (the script 415.2
+# s); hymba-1.5b keeps phase 11's cut
+MESH_TRAIN_B, MESH_TRAIN_S = 4, 512
+MESH_TRAIN_RUNS = [("gemma-2b", 2, 3), ("hymba-1.5b", MESH_HYBRID_LAYERS, 2)]
+MESH_TRAIN_OPT = dict(lr=1e-4, warmup_steps=1, total_steps=10)
+MESH_TRAIN_DP = 8  # the data axis of the (dp, 1) mesh whose bytes phase 12 computes
 # the dry-run's accounting of phase 10's cells, run in a process of its own
 # (on meta: no card) while the card works through phases 3-9
 DRYRUN_SCRIPT = r"""
@@ -2273,7 +2311,7 @@ def train_parity(arch: str, layers: int, b: int, s: int, part: str = "b") -> dic
     second half of its tokens masked out."""
     import torch
 
-    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig, get_config
     from repro_torch.data import DataConfig, SyntheticDataset
     from repro_torch.models.params import tree_map, tree_paths
     from repro_torch.optim import AdamWConfig, adamw_init
@@ -2292,7 +2330,8 @@ def train_parity(arch: str, layers: int, b: int, s: int, part: str = "b") -> dic
                             ("planted", "cuda", planted)):
         p = tree_map(lambda t: t.detach().to(dev, copy=True), params)  # updated in place
         t0 = time.perf_counter()
-        new, opt, m = make_train_step(cfg, opt_cfg, remat=False)(
+        new, opt, m = make_train_step(cfg, None, ShapeConfig("t", s, b, "train"), opt_cfg,
+                                      remat=False).fn(
             p, adamw_init(p), {k: torch.from_numpy(v).to(dev) for k, v in data.items()})
         run = {"m": {k: float(v) for k, v in m.items()}, "s": time.perf_counter() - t0,
                **{k: [(path, host(t)) for path, t in tree_paths(tree)]
@@ -2331,7 +2370,7 @@ def train_breakdown() -> dict:
     norm of each layer's block params."""
     import torch
 
-    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig, get_config
     from repro_torch.data import DataConfig, SyntheticDataset
     from repro_torch.models.params import tree_leaves, tree_map
     from repro_torch.models.transformer import forward_train
@@ -2344,7 +2383,7 @@ def train_breakdown() -> dict:
     opt = adamw_init(params)
     batch = {k: torch.from_numpy(v).to("cuda") for k, v in
              SyntheticDataset(DataConfig(cfg.vocab, s, b, seed=0)).batch(0).items()}
-    step = make_train_step(cfg, remat=False)
+    step = make_train_step(cfg, None, ShapeConfig("t", s, b, "train"), remat=False).fn
     step(params, opt, batch)  # warm-up; the params now require grad
     busy_ms, wall_ms, _ = _profile(f"{arch} train step (B={b} S={s})",
                                    lambda: step(params, opt, batch))
@@ -3086,10 +3125,19 @@ def _mesh_gather_bytes(cfg, b: int, m_len: int, model: int) -> float:
     return float(max(grow, 0) * 2 * cfg.n_layers * spec["k"].element_size())
 
 
+def _placed(params) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.models.params import tree_leaves
+
+    return isinstance(tree_leaves(params)[0], DTensor)
+
+
 def _mesh_run(arch: str, cfg, mesh, params, tokens, steps: int) -> dict:
     """One prefill and ``steps`` greedy decode steps through the bundles on
     ``mesh`` (None: one device), the launch counters set to 0 just before
-    and read just after."""
+    and read just after.  On a mesh, plain ``params`` are placed by the
+    prefill bundle's specs; DTensor ones must be placed so already."""
     import torch
 
     from repro_torch import sharding as SH
@@ -3101,7 +3149,9 @@ def _mesh_run(arch: str, cfg, mesh, params, tokens, steps: int) -> dict:
     m_len = prompt + steps
     pre = make_prefill_step(cfg, mesh, ShapeConfig("prefill", m_len, b, "prefill"))
     dec = make_decode_step(cfg, mesh, ShapeConfig("decode", m_len, b, "decode"))
-    if mesh is not None:
+    if mesh is not None and _placed(params):  # restored onto the bundle's specs
+        SH.check_placed(params, mesh, pre.in_shardings[0], f"mesh {arch} params")
+    elif mesh is not None:
         params = SH.distribute(params, mesh, pre.in_shardings[0])
 
     def place(t, spec):  # the batch as the bundle takes it
@@ -3257,6 +3307,270 @@ def phase_mesh() -> dict:
     return out
 
 
+def _dp_train_bytes(cfg, dp: int) -> tuple:
+    """(reduced, gathered) bytes one rank of a (``dp``, 1) mesh moves in a
+    train step under tp and ZeRO-1, from the specs: every grad is
+    ``Partial`` over "data" (the batch is split) and reduced whole, and each
+    param whose moments ZeRO-1 shards over "data" is gathered back, the
+    (dp - 1) / dp of it this rank did not update."""
+    from repro_torch import sharding as SH
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.models.transformer import model_defs
+    from repro_torch.optim import opt_pspecs
+
+    mesh = {"data": dp, "model": 1}
+    defs = model_defs(cfg, max_seq=MESH_TRAIN_S)
+    mu = opt_pspecs(defs, SH.make_rules(mesh, "tp"), mesh)["mu"]
+    reduced = gathered = 0
+    for d, spec in zip(tree_leaves(defs), tree_leaves(mu)):
+        nbytes = math.prod(d.shape) * d.dtype.itemsize
+        reduced += nbytes
+        if "data" in spec.entries:
+            gathered += nbytes * (dp - 1) // dp
+    return reduced, gathered
+
+
+def _train_run(cfg, mesh, steps: int) -> dict:
+    """``steps`` AdamW steps through ``make_train_step`` (tp, ZeRO-1, remat)
+    on ``mesh`` (None: one device) from ``init_model``'s seed-0 params, on
+    the synthetic task's batches: the metrics of each step, ms a step over
+    steps 2 on, the bytes reduced and gathered a step, the peak memory, and
+    the trained state, on the card."""
+    import torch
+
+    from repro_torch import sharding as SH
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import DataConfig, SyntheticDataset
+    from repro_torch.kernels import ops
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.steps import init_model, make_train_step
+
+    b, s = MESH_TRAIN_B, MESH_TRAIN_S
+    bundle = make_train_step(cfg, mesh, ShapeConfig("train", s, b, "train"),
+                             AdamWConfig(**MESH_TRAIN_OPT))
+    _, params = init_model(cfg, seed=0, max_seq=s, device="cuda")
+    if mesh is None:
+        opt = adamw_init(params)
+    else:
+        params = SH.distribute(params, mesh, bundle.in_shardings[0])
+        opt = adamw_init(params, bundle.in_shardings[1])
+    ds = SyntheticDataset(DataConfig(cfg.vocab, s, b, seed=0))
+    before = ops.launches()
+    SH.relayout.gathered_bytes = SH.relayout.reduced_bytes = 0
+    torch.cuda.reset_peak_memory_stats()
+    metrics, stamps = [], [time.perf_counter()]
+    for i in range(steps):
+        batch = {k: torch.from_numpy(v).to("cuda") for k, v in ds.batch(i).items()}
+        if mesh is not None:
+            batch = SH.distribute(batch, mesh, bundle.in_shardings[2])
+        params, opt, m = bundle.fn(params, opt, batch)
+        metrics.append({k: float(v) for k, v in m.items()})  # float() waits for the step
+        stamps.append(time.perf_counter())
+    if ops.launches() != before:
+        raise AssertionError(f"train on mesh={mesh}: kernels launched {before} -> "
+                             f"{ops.launches()}")
+    for i, m in enumerate(metrics):
+        if not all(map(math.isfinite, m.values())) or m["grad_norm"] <= 0:
+            raise AssertionError(f"train on mesh={mesh}: step {i + 1} metrics {m}")
+    return {"metrics": metrics, "first_ms": (stamps[1] - stamps[0]) * 1e3,
+            "ms": (stamps[-1] - stamps[1]) / (steps - 1) * 1e3,
+            "reduced": SH.relayout.reduced_bytes / steps,
+            "gathered": SH.relayout.gathered_bytes / steps,
+            "peak": torch.cuda.max_memory_allocated(), "params": params, "opt": opt,
+            "bundle": bundle}
+
+
+def _held_params(what: str, got, want_host: list) -> float:
+    """Each leaf of ``got`` (on the card; DTensors gathered whole) within the
+    bf16 tolerance of its host copy in ``want_host``, relative to the leaf's
+    max |x|; returns the worst such share."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.models.params import tree_paths
+
+    worst = 0.0
+    for (path, t), w in zip(tree_paths(got), want_host):
+        t = (t.full_tensor() if isinstance(t, DTensor) else t).detach().float()
+        w = w.to(t.device).float()
+        rel = float((t - w).abs().max() / w.abs().max().clamp_min(1e-30))
+        if rel > TOL["bfloat16"]:
+            raise AssertionError(f"{what} {path}: max err {rel:.3e} of max |x| > bf16 tol")
+        worst = max(worst, rel)
+    return worst
+
+
+def _exact(what: str, got, want) -> None:
+    """Every leaf of ``got`` equal to ``want``'s, bit for bit, and placed as
+    it (DTensors compared as their local tensors)."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.models.params import tree_paths
+
+    for (path, g), (_, w) in zip(tree_paths(got), tree_paths(want)):
+        if isinstance(g, DTensor):
+            if tuple(g.placements) != tuple(w.placements):
+                raise AssertionError(f"{what} {path}: placed {g.placements}, not "
+                                     f"{w.placements}")
+            g, w = g.to_local(), w.to_local()
+        if g.dtype != w.dtype or not torch.equal(g, w.detach()):
+            raise AssertionError(f"{what} {path}: not the saved values")
+
+
+def _checkpoint_and_serve(cfg, mesh, run: dict) -> dict:
+    """(c) ``run``'s trained opt state and params saved from the mesh to an
+    in-memory ``ObjectStore`` and restored, the opt state with its
+    ``opt_pspecs`` and the params with the prefill bundle's
+    ``in_shardings[0]``, both exact (the trained tensors are freed as each
+    is checked); then a prefill of B x prompt and greedy steps through the
+    mesh bundles and ``mesh=None`` on the restored params: tokens equal,
+    launches K1 = n_layers and K2 = n_layers x steps on both."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import ObjectStore
+    from repro_torch.kernels import ops
+    from repro_torch.models.params import tree_map
+    from repro_torch.steps import make_prefill_step
+
+    serve_cfg = dataclasses.replace(cfg, attention_impl="pallas")
+    steps, m_len = DECODE_STEPS, MESH_PROMPT + DECODE_STEPS
+    pre = make_prefill_step(serve_cfg, mesh, ShapeConfig("prefill", m_len, MESH_BATCH,
+                                                         "prefill"))
+    store, n, out = ObjectStore(), len(run["metrics"]), {}
+
+    def round_trip(key: str, state, specs):
+        mgr = CheckpointManager(store, "ckpt", f"mesh/{key}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr.save(n, state)
+        out[f"{key}_save_s"] = time.perf_counter() - t0
+        out[f"{key}_bytes"] = sum(len(store.get("ckpt", k))
+                                  for k in store.list("ckpt", f"mesh/{key}/"))
+        t0 = time.perf_counter()
+        step, restored, _ = mgr.restore_latest(state, shardings=specs, mesh=mesh)
+        torch.cuda.synchronize()
+        out[f"{key}_restore_s"] = time.perf_counter() - t0
+        if step != n:
+            raise AssertionError(f"ckpt {key}: restored step {step}, saved {n}")
+        _exact(f"ckpt {key}", restored, state)
+        return restored
+
+    round_trip("opt", run.pop("opt"), run["bundle"].in_shardings[1])  # both freed
+    torch.cuda.empty_cache()
+    params = round_trip("params", run.pop("params"), pre.in_shardings[0])
+    torch.cuda.empty_cache()
+    g = torch.Generator(device="cuda").manual_seed(11)
+    tokens = torch.randint(1, cfg.vocab, (MESH_BATCH, MESH_PROMPT), generator=g,
+                           device="cuda", dtype=torch.int32)
+    sharded = _mesh_run(cfg.name, serve_cfg, mesh, params, tokens, steps)
+    plain = _mesh_run(cfg.name, serve_cfg, None, tree_map(lambda t: t.full_tensor(), params),
+                      tokens, steps)
+    want = dict.fromkeys(ops.KERNELS, 0)
+    want.update(flash_attention=cfg.n_layers, decode_attention=cfg.n_layers * steps)
+    for name, r in (("mesh=None", plain), ("mesh", sharded)):
+        if r["launches"] != want:
+            raise AssertionError(f"ckpt serve {name}: launches {r['launches']}, want {want}")
+    if not torch.equal(sharded["tokens"], plain["tokens"]):
+        raise AssertionError("ckpt serve: greedy tokens differ from mesh=None's")
+    if not bool(torch.isfinite(plain["logits"]).all()):
+        raise AssertionError("ckpt serve: non-finite logits")
+    out["logits_err"] = check_close("ckpt serve logits", sharded["logits"], plain["logits"],
+                                    "bfloat16")
+    out.update(launches=sharded["launches"], prefill_ms=sharded["prefill_ms"],
+               step_ms=sharded["step_ms"], plain_prefill_ms=plain["prefill_ms"],
+               plain_step_ms=plain["step_ms"], first_tokens=sharded["tokens"][0, :8].tolist())
+    del params, sharded, plain
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_mesh_train() -> dict:
+    """Phase 12: the sharded train step on a (1, 1) NCCL mesh against the
+    same steps with ``mesh=None``, then the trained state checkpointed,
+    restored onto the serving bundles' shardings and served (see the module
+    docstring)."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.params import count_params, tree_leaves
+    from repro_torch.models.transformer import model_defs
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    out = {}
+    try:
+        mesh = make_local_mesh(1, 1)
+        for arch, layers, steps in MESH_TRAIN_RUNS:
+            t0 = time.perf_counter()
+            cfg = get_config(arch)
+            if layers:
+                cfg = dataclasses.replace(cfg, n_layers=layers)
+            plain = _train_run(cfg, None, steps)
+            host = [t.detach().to("cpu", copy=True) for t in tree_leaves(plain["params"])]
+            plain_metrics = plain["metrics"]
+            plain = {k: plain[k] for k in ("ms", "first_ms", "peak")}
+            torch.cuda.empty_cache()
+            run = _train_run(cfg, mesh, steps)
+            for i, (g, w) in enumerate(zip(run["metrics"], plain_metrics)):
+                for k in ("loss", "grad_norm"):
+                    if abs(g[k] - w[k]) > TOL["bfloat16"] * abs(w[k]):
+                        raise AssertionError(f"mesh train {arch} step {i + 1} {k}: {g[k]} on "
+                                             f"the mesh, {w[k]} with mesh=None")
+            worst = _held_params(f"mesh train {arch}", run["params"], host)
+            del host
+            dp_reduced, dp_gathered = _dp_train_bytes(cfg, MESH_TRAIN_DP)
+            depth = f"depth cut to {layers} layers" if layers else "full depth"
+            log("mesh-train", f"{arch} {cfg.dtype} full width ({count_params(model_defs(cfg))} "
+                f"params), {depth}, B={MESH_TRAIN_B} S={MESH_TRAIN_S}, {steps} AdamW steps "
+                f"(tp, ZeRO-1, remat) on the (1, 1) mesh and with mesh=None: losses "
+                f"{[round(m['loss'], 4) for m in run['metrics']]} vs "
+                f"{[round(m['loss'], 4) for m in plain_metrics]}, grad norms "
+                f"{[round(m['grad_norm'], 4) for m in run['metrics']]} vs "
+                f"{[round(m['grad_norm'], 4) for m in plain_metrics]}; every param within "
+                f"{worst:.3e} of max |x| (bf16 tol {TOL['bfloat16']}); no kernel launched")
+            log("mesh-train", f"{arch}: {run['ms']:.2f} ms a step on the mesh vs "
+                f"{plain['ms']:.2f} ms with mesh=None (steps 2-{steps}; step 1 "
+                f"{run['first_ms']:.2f} vs {plain['first_ms']:.2f}); peak "
+                f"{run['peak'] / 2**30:.2f} vs {plain['peak'] / 2**30:.2f} GiB; bytes a step "
+                f"on (1, 1): grads reduced {run['reduced']:.0f}, ZeRO-1 gathered "
+                f"{run['gathered']:.0f}; a rank of a ({MESH_TRAIN_DP}, 1) mesh would reduce "
+                f"{dp_reduced} ({dp_reduced / 2**30:.2f} GiB) and gather {dp_gathered} "
+                f"({dp_gathered / 2**30:.2f} GiB) (from the specs)")
+            out[arch] = {"ms": run["ms"], "plain_ms": plain["ms"], "peak": run["peak"],
+                         "reduced": run["reduced"], "gathered": run["gathered"],
+                         "dp_reduced": dp_reduced, "dp_gathered": dp_gathered}
+            if arch == MESH_TRAIN_RUNS[0][0]:
+                c = _checkpoint_and_serve(cfg, mesh, run)
+                out[arch]["ckpt"] = c
+                log("mesh-train", f"{arch} checkpoint of the trained state: opt state "
+                    f"{c['opt_bytes']} bytes saved in {c['opt_save_s']:.2f} s, restored with "
+                    f"its opt_pspecs in {c['opt_restore_s']:.2f} s; params "
+                    f"{c['params_bytes']} bytes saved in {c['params_save_s']:.2f} s, "
+                    f"restored onto the prefill bundle's in_shardings in "
+                    f"{c['params_restore_s']:.2f} s; both exact")
+                log("mesh-train", f"{arch} restored params served, B={MESH_BATCH}, "
+                    f"{MESH_PROMPT}-token prompts, {DECODE_STEPS} greedy steps: tokens equal "
+                    f"to mesh=None's (first row {c['first_tokens']}...), logits max_abs_err "
+                    f"{c['logits_err']:.3e}, launches "
+                    f"{c['launches']} on both; prefill {c['prefill_ms']:.2f} vs "
+                    f"{c['plain_prefill_ms']:.2f} ms, step {c['step_ms']:.2f} vs "
+                    f"{c['plain_step_ms']:.2f} ms")
+            del run
+            torch.cuda.empty_cache()
+            log("mesh-train", f"{arch} took {time.perf_counter() - t0:.1f}s with init")
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
 def _bound(flops: float, nbytes: float, peak: float, exp_rate: float, exps: float = 0) -> dict:
     """The roofline bound of a kernel call in ms: the larger of its bytes
     over the card's memory rate and its operations over their peak, FLOPs at
@@ -3338,6 +3652,9 @@ def _phases(t_start: float, smi: str, proc) -> int:
     t0 = time.perf_counter()
     phase_mesh()
     log("mesh", f"phase took {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    phase_mesh_train()
+    log("mesh-train", f"phase took {time.perf_counter() - t0:.1f}s")
     log("done", f"all phases passed in {time.perf_counter() - t_start:.1f}s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,5 +1,5 @@
-"""Checkpointing: commit-marked, async save, keep-last-k, in the JAX
-package's layout.
+"""Checkpointing: commit-marked, reshard-on-load, async save, keep-last-k,
+in the JAX package's layout.
 
 Port of ``repro.checkpoint.manager``.  Layout under an ObjectStore prefix
 (a local dir or the in-memory store):
@@ -16,6 +16,17 @@ array; the manifest lists each leaf's ``path`` (formatted as
 bf16 leaves are stored as their raw bits (a uint16 array) under the dtype
 tag ``"bfloat16"``.  So a checkpoint written by either package restores in
 the other, bit for bit.
+
+On a mesh a tree may hold DTensors.  ``save`` gathers each whole
+(``full_tensor``, a collective: every rank calls ``save`` and
+``save_async``, and the gather runs on the caller's thread, never in the
+writer thread); rank 0 writes, and every rank waits on a barrier before
+``save`` (or the ``wait`` after ``save_async``) returns, so no rank reads a
+half-written step.  Leaves are stored whole, so ``restore`` may place them
+on another mesh than the one that saved them (reshard-on-load): with
+``shardings``, a tree of ``sharding.P`` matching ``like``, and a ``mesh``,
+each rank reads every leaf and keeps its own chunk, so loading moves no
+bytes between ranks.
 """
 from __future__ import annotations
 
@@ -26,7 +37,9 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
+from repro_torch import sharding as SH
 from repro_torch.core.objectstore import ObjectStore
 from repro_torch.models.params import tree_leaves, tree_paths, tree_unflatten
 
@@ -71,12 +84,23 @@ class CheckpointManager:
         self.keep = keep
         self._async_thread: Optional[threading.Thread] = None
         self._async_err: Optional[BaseException] = None
+        self._barrier_due = False
 
     # -- save ----------------------------------------------------------------
 
-    def _to_host(self, tree: Any) -> List[Tuple[str, np.ndarray, str]]:
-        """(keypath, numpy array [bf16 stored as uint16 view], dtype tag)."""
-        return [(path, *_to_numpy(leaf)) for path, leaf in tree_paths(tree)]
+    @staticmethod
+    def _to_host(tree: Any) -> Tuple[Optional[List[Tuple[str, np.ndarray, str]]], bool]:
+        """((keypath, numpy array [bf16 stored as uint16 view], dtype tag) a
+        leaf, whether the tree is on a mesh).  A DTensor leaf is gathered
+        whole first; on a mesh only rank 0 keeps host copies (the others get
+        None: they write nothing)."""
+        on_mesh = any(isinstance(leaf, DTensor) for leaf in tree_leaves(tree))
+        out = [] if not on_mesh or torch.distributed.get_rank() == 0 else None
+        for path, leaf in tree_paths(tree):
+            full = leaf.full_tensor() if isinstance(leaf, DTensor) else leaf
+            if out is not None:
+                out.append((path, *_to_numpy(full)))
+        return out, on_mesh
 
     def _write(self, step: int, host_leaves: List[Tuple[str, np.ndarray, str]],
                extra: Optional[Dict[str, Any]]) -> None:
@@ -94,14 +118,20 @@ class CheckpointManager:
         self._gc()
 
     def save(self, step: int, tree: Any, extra: Optional[Dict[str, Any]] = None) -> None:
-        self._write(step, self._to_host(tree), extra)
+        host_leaves, on_mesh = self._to_host(tree)
+        if host_leaves is not None:
+            self._write(step, host_leaves, extra)
+        if on_mesh:
+            torch.distributed.barrier()
 
     def save_async(self, step: int, tree: Any,
                    extra: Optional[Dict[str, Any]] = None) -> None:
         """Snapshot to host memory synchronously, write in the background:
         the train loop resumes while bytes stream out."""
         self.wait()  # one in flight at a time
-        host_leaves = self._to_host(tree)
+        host_leaves, self._barrier_due = self._to_host(tree)
+        if host_leaves is None:
+            return  # a rank that does not write
 
         def work():
             try:
@@ -116,6 +146,9 @@ class CheckpointManager:
         if self._async_thread is not None:
             self._async_thread.join()
             self._async_thread = None
+        if self._barrier_due:
+            self._barrier_due = False
+            torch.distributed.barrier()
         if self._async_err is not None:
             err, self._async_err = self._async_err, None
             raise err
@@ -131,10 +164,17 @@ class CheckpointManager:
                     steps.append(int(part[5:]))
         return max(steps) if steps else None
 
-    def restore(self, step: int, like: Any, device=None) -> Tuple[Any, Dict[str, Any]]:
+    def restore(self, step: int, like: Any, device=None, shardings: Any = None, mesh=None
+                ) -> Tuple[Any, Dict[str, Any]]:
         """The checkpoint of ``step`` in the structure of ``like`` (a tree of
-        tensors), each leaf on ``device`` (default: the device of its
-        counterpart in ``like``); returns (tree, the manifest's extra)."""
+        tensors, DTensors or ``meta`` stand-ins: only shapes are read);
+        returns (tree, the manifest's extra).  With ``shardings`` (a matching
+        tree of ``sharding.P``) each leaf becomes a DTensor on ``mesh`` placed
+        by its spec (reshard-on-load: the module docstring); else each leaf
+        goes to ``device`` (default: the device of its counterpart in
+        ``like``)."""
+        if shardings is not None and mesh is None:
+            raise ValueError("restore(shardings=...) places the leaves on a mesh: pass mesh=")
         stepdir = self._stepdir(step)
         manifest = json.loads(self.store.get(self.bucket, f"{stepdir}/{MANIFEST}"))
         flat_like = tree_leaves(like)
@@ -142,20 +182,26 @@ class CheckpointManager:
         if len(entries) != len(flat_like):
             raise ValueError(f"checkpoint has {len(entries)} leaves, "
                              f"model expects {len(flat_like)}")
+        flat_sh = tree_leaves(shardings) if shardings is not None else [None] * len(flat_like)
+        if len(flat_sh) != len(flat_like):
+            raise ValueError(f"{len(flat_sh)} specs for a tree of {len(flat_like)} leaves")
         out = []
-        for e, lk in zip(entries, flat_like):
+        for e, lk, spec in zip(entries, flat_like, flat_sh):
             t = _to_tensor(_load_npy(self.store.get(self.bucket, e["key"])), e["dtype"])
             if tuple(t.shape) != tuple(lk.shape):
                 raise ValueError(f"{e['path']}: shape {tuple(t.shape)} != {tuple(lk.shape)}")
-            out.append(t.to(lk.device if device is None else device))
+            if spec is not None:
+                out.append(SH.distribute(t, mesh, spec))
+            else:
+                out.append(t.to(lk.device if device is None else device))
         return tree_unflatten(like, out), manifest["extra"]
 
-    def restore_latest(self, like: Any, device=None
+    def restore_latest(self, like: Any, device=None, shardings: Any = None, mesh=None
                        ) -> Optional[Tuple[int, Any, Dict[str, Any]]]:
         step = self.latest_step()
         if step is None:
             return None
-        tree, extra = self.restore(step, like, device)
+        tree, extra = self.restore(step, like, device, shardings, mesh)
         return step, tree, extra
 
     # -- internals --------------------------------------------------------------

@@ -33,7 +33,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch.checkpoint import CheckpointManager
-from repro_torch.configs.base import get_smoke_config
+from repro_torch.configs.base import ShapeConfig, get_smoke_config
 from repro_torch.core.backends import base as B
 from repro_torch.core.backends.slurm import make_server as make_slurm_server
 from repro_torch.core.objectstore import ObjectStore
@@ -86,7 +86,8 @@ def train_job(spec: Dict[str, Any], store: ObjectStore,
             start_step, tree, _extra = resumed
             params, opt_state = tree["params"], tree["opt"]
 
-    step_fn = make_train_step(cfg, opt_cfg, remat=False)
+    step_fn = make_train_step(cfg, None, ShapeConfig("job", seq, batch_sz, "train"),
+                              opt_cfg, remat=False).fn
 
     history = []
     for step in range(start_step, steps):

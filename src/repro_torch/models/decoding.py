@@ -55,7 +55,7 @@ from repro_torch.models.transformer import (_apply_block, _embed_inputs, _ffn, _
 Params = Dict[str, Any]
 
 # the families that run on a mesh; the others wait for ROADMAP.md Queue 1
-# item 5a-ii
+# item 5a-iii
 MESH_FAMILIES = ("dense", "hybrid")
 
 
@@ -65,7 +65,7 @@ def check_mesh_family(cfg: ModelConfig) -> None:
     if cfg.family not in MESH_FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) does not run on a mesh yet: ROADMAP.md "
-            f"Queue 1 item 5a-ii brings it; on a mesh the port runs {MESH_FAMILIES}")
+            f"Queue 1 item 5a-iii brings it; on a mesh the port runs {MESH_FAMILIES}")
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, window: int = 0,

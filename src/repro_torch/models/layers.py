@@ -105,6 +105,27 @@ def attention_defs(cfg) -> Params:
     }
 
 
+def _whole_groups(q: torch.Tensor, hkv: int) -> Tuple[torch.Tensor, Tuple[int, ...]]:
+    """(q, the mesh dims re-placed) with q (B,Sq,Hq,D), a DTensor, re-placed
+    with its heads unsharded on every mesh dim whose size does not divide
+    Hkv: splitting Hq into (Hkv, G) keeps a shard only of whole kv heads (or
+    of the G heads of MQA's one).  The attention's output is sharded back on
+    those dims (``_regroup``), so that its grad reaches the split's backward
+    in the layout the forward had.  (q, ()) for a plain q."""
+    if not isinstance(q, DTensor) or hkv == 1:
+        return q, ()
+    mesh = q.device_mesh
+    dims = tuple(i for i, p in enumerate(q.placements) if p == Shard(2) and hkv % mesh.size(i))
+    return SH.relayout(q, [Replicate() if i in dims else p
+                           for i, p in enumerate(q.placements)]), dims
+
+
+def _regroup(out: torch.Tensor, dims: Tuple[int, ...]) -> torch.Tensor:
+    if not dims:
+        return out
+    return SH.relayout(out, [Shard(2) if i in dims else p for i, p in enumerate(out.placements)])
+
+
 def _gqa_scores(q: torch.Tensor, k: torch.Tensor, n_rep: int, hd: int) -> torch.Tensor:
     """q: (B,Sq,Hq,D), k: (B,Sk,Hkv,D) -> f32 scores / sqrt(D), (B,Hkv,G,Sq,Sk)."""
     b, sq, hq, d = q.shape
@@ -143,8 +164,9 @@ def _plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """softmax(q k^T / sqrt(D)) v in plain PyTorch; q (B,Sq,Hq,D), k/v
     (B,Sk,Hkv,D); ``mask`` broadcasts to (B,Hkv,G,Sq,Sk), None for all keys."""
     hd = cfg.resolved_head_dim
+    q, dims = _whole_groups(q, k.shape[2])
     scores = _gqa_scores(q, k, cfg.n_heads // cfg.n_kv_heads, hd)
-    return _gqa_out(_masked_softmax(scores, mask, q.dtype), v)
+    return _regroup(_gqa_out(_masked_softmax(scores, mask, q.dtype), v), dims)
 
 
 ATTENTION_IMPLS = ("xla", "pallas", "blockwise", "blockwise_u")
@@ -175,6 +197,7 @@ def _blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg,
     if pad:  # zero queries (F.pad has no sound DTensor rule in every torch)
         q = torch.cat([q, SH.zeros_beside(q, (b, pad) + tuple(q.shape[2:]), 1)], dim=1)
     n_rep = cfg.n_heads // cfg.n_kv_heads
+    q, dims = _whole_groups(q, k.shape[2])
     kt = SH.replicate_like(torch.arange(s, device=q.device)[None, :], q)
     rows = SH.replicate_like(torch.arange(bq, device=q.device)[:, None], q)
     outs = []
@@ -184,7 +207,7 @@ def _blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg,
         if window > 0:
             mask = mask & (kt > rows + lo - window)
         outs.append(_gqa_out(_masked_softmax(scores, mask, q.dtype), v))
-    return torch.cat(outs, dim=1)[:, :s]
+    return _regroup(torch.cat(outs, dim=1)[:, :s], dims)
 
 
 def _maybe_seq_shard(x: torch.Tensor, cfg) -> torch.Tensor:

@@ -25,7 +25,10 @@ On a mesh (DTensor inputs, ``steps.py``) K3 and K4 run in ``local_map``
 islands on each rank's local ``d_inner`` channels, the batch over the dp
 axes where it divides: the recurrence is per channel, so the local scans
 are exact.  Their outputs keep the layout of the cache's ``ssm`` state
-(``sharding.cache_pspecs``).  The decode step is plain DTensor ops.
+(``sharding.cache_pspecs``).  The decode step is plain DTensor ops, and
+so are training's differentiable scans: they slice and concatenate along S
+and combine channel by channel, so ``d_inner`` keeps its shard and autograd
+runs on each rank's channels.
 """
 from __future__ import annotations
 

@@ -42,6 +42,7 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import sharding as SH
@@ -254,6 +255,9 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor, mask: torch.Tenso
                   ) -> torch.Tensor:
     """Mean next-token NLL over the mask, in f32: sum((lse - gold) * mask) /
     max(sum(mask), 1)."""
+    if isinstance(logits, DTensor):
+        logits = SH.relayout(logits, [Replicate() if pl == Shard(logits.dim() - 1) else pl
+                                      for pl in logits.placements])
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]

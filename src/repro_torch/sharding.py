@@ -304,17 +304,22 @@ def zeros_beside(like: torch.Tensor, shape: Sequence[int], dim: int) -> torch.Te
 def relayout(t: DTensor, pl: Sequence[Placement]) -> DTensor:
     """``t`` re-placed to ``pl`` (itself when it is placed so already).  The
     bytes by which its local tensor grows, what this rank receives in an
-    all-gather, are added to ``relayout.gathered_bytes``."""
+    all-gather, are added to ``relayout.gathered_bytes``; the local bytes of
+    a ``Partial`` tensor, what this rank sends into an all-reduce or a
+    reduce-scatter, to ``relayout.reduced_bytes``."""
     pl = tuple(pl)
     if tuple(t.placements) == pl:
         return t
     before = t.to_local().numel()
+    if any(p.is_partial() for p in t.placements):
+        relayout.reduced_bytes += before * t.element_size()
     out = t.redistribute(t.device_mesh, pl)
     relayout.gathered_bytes += max(out.to_local().numel() - before, 0) * t.element_size()
     return out
 
 
 relayout.gathered_bytes = 0
+relayout.reduced_bytes = 0
 
 
 def local_call(fn: Callable, in_pl: Sequence[Any], out_pl: Any, *args: DTensor) -> Any:

@@ -16,8 +16,12 @@ prefill and decode bundles carry the reference's ``in_shardings`` /
 by ``in_shardings`` (``sharding.distribute``) and raises for any other
 placement, returns the logits as a full tensor and the cache with
 ``out_shardings``' placements, and runs with the mesh installed
-(``parallel.ep.ep_mesh``).  The dense and hybrid families run on a mesh;
-the others, and the train step, wait for ROADMAP.md Queue 1 item 5a-ii.
+(``parallel.ep.ep_mesh``).  The train bundle takes params and the
+optimizer state placed by ``in_shardings`` (the moments by
+``optim.adamw.opt_pspecs``, ZeRO-1 by default) and the batch over the
+data-parallel axes, and returns them placed by ``out_shardings``, with its
+0-d metrics as full tensors.  The dense and hybrid families run on a mesh;
+the others wait for ROADMAP.md Queue 1 item 5a-iii.
 """
 from __future__ import annotations
 
@@ -33,7 +37,7 @@ from repro_torch.models import decoding as DEC
 from repro_torch.models import transformer as TF
 from repro_torch.models.layers import adtype
 from repro_torch.models.params import abstract_params, init_params, tree_map, tree_paths
-from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
+from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update, opt_pspecs
 from repro_torch.parallel.ep import ep_mesh
 
 
@@ -183,25 +187,15 @@ def make_decode_step(cfg: ModelConfig, mesh, shape: ShapeConfig,
 
 def make_step(cfg: ModelConfig, mesh, shape: ShapeConfig,
               opt_cfg: Optional[AdamWConfig] = None, strategy: str = "tp") -> StepBundle:
-    """The bundle of a cell of ``shape.kind``.  ``train`` wraps
-    ``make_train_step(cfg, opt_cfg)`` (remat on, the reference's default)
-    with the meta params, their ``adamw_init`` and the batch, on one device
-    only: on a mesh it raises (ROADMAP.md Queue 1 item 5a-ii).  The other
-    kinds ignore ``opt_cfg``."""
+    """The bundle of a cell of ``shape.kind``: ``train`` is
+    ``make_train_step(cfg, mesh, shape, opt_cfg, strategy)`` (ZeRO-1 and
+    remat on, the reference's defaults).  The other kinds ignore
+    ``opt_cfg``."""
     if shape.kind == "prefill":
         return make_prefill_step(cfg, mesh, shape, strategy)
     if shape.kind == "decode":
         return make_decode_step(cfg, mesh, shape, strategy)
-    if mesh is not None:
-        raise NotImplementedError("the sharded train step waits for ROADMAP.md Queue 1 "
-                                  "item 5a-ii (ZeRO-1, the sharded train step); "
-                                  "pass mesh=None for one device")
-    params = abstract_params(TF.model_defs(cfg, max_seq=shape.seq_len))
-    return StepBundle(
-        fn=make_train_step(cfg, opt_cfg),
-        input_specs={"params": params, "opt_state": adamw_init(params),
-                     "batch": batch_specs(cfg, shape)},
-        donate_argnames=("params", "opt_state"))
+    return make_train_step(cfg, mesh, shape, opt_cfg, strategy)
 
 
 def init_model(cfg: ModelConfig, seed: int = 0, max_seq: int = 128,
@@ -216,22 +210,42 @@ def init_model(cfg: ModelConfig, seed: int = 0, max_seq: int = 128,
     return defs, init_params(defs, gen, dev)
 
 
-def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
-                    remat: bool = True) -> Callable:
-    """``step(params, opt_state, batch) -> (params, opt_state, metrics)``:
-    forward, backward, then ``adamw_update`` under ``torch.no_grad()``.
+def make_train_step(cfg: ModelConfig, mesh, shape: ShapeConfig,
+                    opt_cfg: Optional[AdamWConfig] = None, strategy: str = "tp",
+                    zero1: bool = True, remat: bool = True) -> StepBundle:
+    """``fn(params, opt_state, batch) -> (params, opt_state, metrics)``:
+    forward, backward, then ``adamw_update`` under ``torch.no_grad()``
+    (reference steps.py:85).
 
     Params become leaves that require grad; they and the moments are updated
     in place, and their grads are read and cleared.  ``metrics`` holds the
     0-d tensors loss, aux, grad_norm and lr.  A param left without a
-    gradient raises rather than skipping its update."""
+    gradient raises rather than skipping its update.  On a mesh ``fn``
+    refuses inputs placed otherwise than ``in_shardings`` = (param specs,
+    ``opt_pspecs(..., zero1)``, batch specs) and returns the params and the
+    state placed by ``out_shardings`` and the metrics as full tensors; see
+    ``optim/adamw.py`` for the grads' reduction and ZeRO-1.  ``shape`` sizes
+    ``input_specs`` (and the batch's specs)."""
     opt_cfg = opt_cfg or AdamWConfig()
+    defs = TF.model_defs(cfg, max_seq=shape.seq_len)
+    ins = outs = None
+    if mesh is not None:
+        DEC.check_mesh_family(cfg)
+        rules = SH.make_rules(mesh, strategy)
+        p_specs = SH.param_pspecs(defs, rules, mesh)
+        o_specs = opt_pspecs(defs, rules, mesh, zero1=zero1)
+        ins = (p_specs, o_specs, SH.batch_pspecs(batch_specs(cfg, shape), mesh))
+        outs = (p_specs, o_specs, None)
 
-    def step(params, opt_state, batch: Dict[str, torch.Tensor]):
+    def train_step(params, opt_state, batch: Dict[str, torch.Tensor]):
+        if mesh is not None:
+            for tree, spec, what in zip((params, opt_state, batch), ins,
+                                        ("params", "opt_state", "batch")):
+                SH.check_placed(tree, mesh, spec, f"train {what}")
         named = tree_paths(params)
         for _, p in named:
             p.requires_grad_(True)
-        with torch.enable_grad():
+        with ep_mesh(mesh), torch.enable_grad():
             total, metrics = TF.forward_train(params, cfg, batch, remat=remat)
             total.backward()
         missing = [path for path, p in named if p.grad is None]
@@ -242,7 +256,12 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
                 tree_map(lambda p: p.grad, params), opt_state, params, opt_cfg)
         for _, p in named:
             p.grad = None
-        return params, opt_state, {**{k: v.detach() for k, v in metrics.items()},
-                                   **opt_metrics}
+        return params, opt_state, {k: _full(v.detach())
+                                   for k, v in {**metrics, **opt_metrics}.items()}
 
-    return step
+    abs_params = abstract_params(defs)
+    return StepBundle(
+        fn=train_step, in_shardings=ins, out_shardings=outs,
+        input_specs={"params": abs_params, "opt_state": adamw_init(abs_params),
+                     "batch": batch_specs(cfg, shape)},
+        donate_argnames=("params", "opt_state"))

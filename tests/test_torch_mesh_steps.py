@@ -29,6 +29,7 @@ without a group of the right size raises, a bundle refuses inputs placed
 otherwise, and on a (1, 1) mesh the bundles give the unsharded bundles'
 numbers.
 """
+import dataclasses
 import json
 import os
 import signal
@@ -282,12 +283,13 @@ def test_make_local_mesh_needs_a_group_of_its_size(tmp_path):
 @pytest.mark.parametrize("arch", ["gemma-2b", "hymba-1.5b"])
 def test_one_by_one_mesh_matches_no_mesh(arch, one_rank):
     """On a (1, 1) mesh every placement is a Shard or a Replicate over one
-    rank: the bundles give the unsharded bundles' numbers, refuse plain
-    inputs, and the train step raises."""
+    rank: the bundles give the unsharded bundles' numbers and refuse plain
+    inputs, the train bundle's step too."""
     from repro_torch import sharding as SH
     from repro_torch.configs.base import ShapeConfig, get_smoke_config
     from repro_torch.launch.mesh import make_local_mesh
-    from repro_torch.models.params import tree_paths
+    from repro_torch.models.params import tree_map, tree_paths
+    from repro_torch.optim import adamw_init
     from repro_torch.steps import init_model, make_decode_step, make_prefill_step, make_step
 
     mesh = make_local_mesh(1, 1, device="cpu")
@@ -313,8 +315,22 @@ def test_one_by_one_mesh_matches_no_mesh(arch, one_rank):
     torch.testing.assert_close(got_step, want_step, rtol=0, atol=1e-6)
     for (path, t), (_, w) in zip(tree_paths(cache), tree_paths(wcache)):
         torch.testing.assert_close(t.full_tensor(), w, rtol=0, atol=1e-6, msg=path)
-    with pytest.raises(NotImplementedError, match="5a-ii"):
-        make_step(cfg, mesh, ShapeConfig("t", 16, 2, "train"))
+    train_shape = ShapeConfig("t", 8, 2, "train")
+    train_cfg = dataclasses.replace(cfg, attention_impl="xla")  # K1 has no backward
+    batch = {"tokens": tokens, "targets": torch.roll(tokens, -1, 1),
+             "mask": torch.ones(2, 8)}
+    want_p, _, want_m = make_step(train_cfg, None, train_shape).fn(
+        tree_map(torch.clone, params), adamw_init(params), batch)
+    train = make_step(train_cfg, mesh, train_shape)
+    with pytest.raises(ValueError, match="placed"):
+        train.fn(sparams, adamw_init(sparams, train.in_shardings[1]), batch)
+    got_p, _, got_m = train.fn(sparams, adamw_init(sparams, train.in_shardings[1]),
+                               SH.distribute(batch, mesh, train.in_shardings[2]))
+    for k in ("loss", "grad_norm"):
+        torch.testing.assert_close(got_m[k], want_m[k], rtol=1e-6, atol=0, msg=k)
+    for (path, t), (_, w) in zip(tree_paths(got_p), tree_paths(want_p)):
+        torch.testing.assert_close(t.detach().full_tensor(), w.detach(), rtol=0, atol=1e-6,
+                                   msg=path)
 
 
 if __name__ == "__main__":

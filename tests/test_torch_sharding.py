@@ -2,9 +2,9 @@
 
 For every arch (full size), both strategies and the meshes (1, 1), (2, 2),
 (1, 4), (16, 16) and the pod (2, 16, 16): ``param_pspecs``,
-``batch_pspecs`` (the four shapes) and ``cache_pspecs`` (the decode shapes,
-with ``long_500k``'s window, ``decode_seq_shard`` on and off), entry by
-entry.  The JAX side runs on ``jax.sharding.AbstractMesh``, the port's on a
+``batch_pspecs`` (the four shapes), ``cache_pspecs`` (the decode shapes,
+with ``long_500k``'s window, ``decode_seq_shard`` on and off) and the
+optimizer state's ``opt_pspecs`` (ZeRO-1 on and off), entry by entry.  The JAX side runs on ``jax.sharding.AbstractMesh``, the port's on a
 plain ``{name: size}`` layout: neither needs a device.  Then the conversion
 of a spec to DTensor placements.
 """
@@ -18,12 +18,14 @@ from repro import steps as JS
 from repro.configs import base as JC
 from repro.models import decoding as JDEC
 from repro.models import transformer as JTF
+from repro.optim import adamw as JA
 from repro_torch import sharding as TSH
 from repro_torch import steps as TS
 from repro_torch.configs import base as TC
 from repro_torch.models import decoding as TDEC
 from repro_torch.models import transformer as TTF
 from repro_torch.models.params import tree_paths
+from repro_torch.optim import adamw as TA
 
 import _torch_threads  # noqa: F401  (one intra-op thread per test worker)
 
@@ -63,6 +65,71 @@ def test_param_pspecs_match_jax(arch, strategy, mesh):
     jdefs, tdefs = JTF.model_defs(jcfg, max_seq=4096), TTF.model_defs(tcfg, max_seq=4096)
     _assert_same(TSH.param_pspecs(tdefs, TSH.make_rules(tmesh, strategy), tmesh),
                  JSH.param_pspecs(jdefs, JSH.make_rules(jmesh, strategy), jmesh))
+
+
+@pytest.mark.parametrize("zero1", [True, False], ids=["zero1", "no_zero1"])
+@pytest.mark.parametrize("mesh", list(MESHES))
+@pytest.mark.parametrize("strategy", ["tp", "fsdp_tp"])
+@pytest.mark.parametrize("arch", TC.ARCH_IDS)
+def test_opt_pspecs_match_jax(arch, strategy, mesh, zero1):
+    jmesh, tmesh = _meshes(mesh)
+    jdefs = JTF.model_defs(JC.get_config(arch), max_seq=4096)
+    tdefs = TTF.model_defs(TC.get_config(arch), max_seq=4096)
+    tspecs = TA.opt_pspecs(tdefs, TSH.make_rules(tmesh, strategy), tmesh, zero1=zero1)
+    jspecs = JA.opt_pspecs(jdefs, JSH.make_rules(jmesh, strategy), jmesh, zero1=zero1)
+    assert sorted(tspecs) == sorted(jspecs) == ["mu", "nu", "step"]
+    _assert_same(tspecs, jspecs)
+
+
+@pytest.mark.parametrize("shape,base,mesh,want", [
+    # no free dp axis: "data" already shards the param
+    ((64, 32), ("data", "model"), {"data": 2, "model": 2}, ("data", "model")),
+    # no unsharded dim that "data" divides
+    ((3, 5), (None, None), {"data": 2, "model": 2}, (None, None)),
+    ((3, 32), (None, "model"), {"data": 4, "model": 2}, (None, "model")),
+    # the first divisible unsharded dim, past a short spec
+    ((3, 8, 16), (None,), {"data": 4, "model": 2}, (None, "data", None)),
+    # both dp axes of the pod mesh free: one tuple entry
+    ((64, 32), (None, "model"), {"pod": 2, "data": 16, "model": 16}, (("pod", "data"), "model")),
+    # "pod" taken by the param: "data" alone
+    ((64, 32), ("pod", None), {"pod": 2, "data": 16, "model": 16}, ("pod", "data")),
+    # a size-1 data axis divides every dim
+    ((3,), (None,), {"data": 1, "model": 4}, ("data",)),
+])
+def test_zero1_spec_matches_jax(shape, base, mesh, want):
+    names, sizes = tuple(mesh), tuple(mesh.values())
+    got = TA._zero1_spec(shape, TSH.P(*base), mesh)
+    assert _entries(got) == _entries(JA._zero1_spec(shape, jax.sharding.PartitionSpec(*base),
+                                                    AbstractMesh(sizes, names)))
+    assert got == TSH.P(*want)
+
+
+@pytest.mark.parametrize("zero1", [True, False], ids=["zero1", "no_zero1"])
+@pytest.mark.parametrize("strategy", ["tp", "fsdp_tp"])
+@pytest.mark.parametrize("arch", ["gemma-2b", "hymba-1.5b"])
+def test_train_bundle_shardings_match_jax(arch, strategy, zero1):
+    """``make_train_step(...).in_shardings`` / ``out_shardings`` on (2, 2)
+    equal the reference bundle's on an abstract (2, 2) mesh."""
+    jmesh, tmesh = _meshes("2x2")
+    shape = ("t", 32, 4, "train")
+    tb = TS.make_train_step(TC.get_smoke_config(arch), tmesh, TC.ShapeConfig(*shape),
+                            strategy=strategy, zero1=zero1)
+    jb = JS.make_train_step(JC.get_smoke_config(arch), jmesh, JC.ShapeConfig(*shape),
+                            strategy=strategy, zero1=zero1)
+    assert len(tb.in_shardings) == len(jb.in_shardings) == 3
+    for tpart, jpart in zip(tb.in_shardings + tb.out_shardings,
+                            jb.in_shardings + jb.out_shardings):
+        if jpart is None:
+            assert tpart is None
+        else:
+            _assert_same(tpart, jpart)
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "whisper-large-v3"])
+def test_train_bundle_of_a_family_not_on_a_mesh_raises(arch):
+    with pytest.raises(NotImplementedError, match="5a-iii"):
+        TS.make_train_step(TC.get_smoke_config(arch), {"data": 2, "model": 2},
+                           TC.ShapeConfig("t", 32, 4, "train"))
 
 
 @pytest.mark.parametrize("mesh", list(MESHES))

@@ -205,8 +205,8 @@ def _one_step(arch, dtype):
     batch = _batch(jcfg.vocab, seed=3)
     jnew, jopt, jmet = _jax_step(jcfg, JA.AdamWConfig(**OPT))(jp, JA.adamw_init(jp),
                                                                _jb(batch))
-    tnew, topt, tmet = make_train_step(tcfg, TA.AdamWConfig(**OPT), remat=False)(
-        tp, TA.adamw_init(tp), _tb(batch))
+    tnew, topt, tmet = make_train_step(tcfg, None, TC.ShapeConfig("t", 16, 2, "train"), TA.AdamWConfig(**OPT),
+                                       remat=False).fn(tp, TA.adamw_init(tp), _tb(batch))
     f32 = (jnew, jopt, jmet)
     if dtype != "float32":
         jcfg32 = dataclasses.replace(jcfg, dtype="float32")
@@ -324,8 +324,9 @@ def test_three_steps_losses_match_jax():
     jds = JD.SyntheticDataset(JD.DataConfig(jcfg.vocab, 16, 2, seed=0))
     tds = TD.SyntheticDataset(TD.DataConfig(tcfg.vocab, 16, 2, seed=0))
     jstep = _jax_step(jcfg, JA.AdamWConfig(lr=1e-2, warmup_steps=1, total_steps=3))
-    tstep = make_train_step(tcfg, TA.AdamWConfig(lr=1e-2, warmup_steps=1, total_steps=3),
-                            remat=False)
+    tstep = make_train_step(tcfg, None, TC.ShapeConfig("t", 16, 2, "train"),
+                            TA.AdamWConfig(lr=1e-2, warmup_steps=1, total_steps=3),
+                            remat=False).fn
     jopt, topt = JA.adamw_init(jp), TA.adamw_init(tp)
     jl, tl = [], []
     for s in range(3):
@@ -341,7 +342,7 @@ def test_every_leaf_moves_in_one_step():
     _, tcfg = _cfgs()
     _, params = init_model(tcfg, device="cpu")
     before = [t.clone() for t in tree_leaves(params)]
-    params, opt, _ = make_train_step(tcfg, TA.AdamWConfig(**OPT))(
+    params, opt, _ = make_train_step(tcfg, None, TC.ShapeConfig("t", 16, 2, "train"), TA.AdamWConfig(**OPT)).fn(
         params, TA.adamw_init(params), _tb(_batch(tcfg.vocab, seed=4)))
     for (path, t), b in zip(tree_paths(params), before):
         assert not torch.equal(t, b), path
@@ -353,7 +354,7 @@ def test_a_param_without_a_gradient_raises():
     _, tcfg = _cfgs()
     _, params = init_model(tcfg, device="cpu")
     params["unused"] = torch.zeros(3)  # reaches no loss
-    step = make_train_step(tcfg, TA.AdamWConfig(**OPT))
+    step = make_train_step(tcfg, None, TC.ShapeConfig("t", 16, 2, "train"), TA.AdamWConfig(**OPT)).fn
     with pytest.raises(RuntimeError, match=r"no gradient reached \[\"\['unused'\]\"\]"):
         step(params, TA.adamw_init(params), _tb(_batch(tcfg.vocab, seed=4)))
 
@@ -685,7 +686,7 @@ def test_hybrid_one_adamw_step_matches_jax(scan_impl):
     batch = _batch(jcfg.vocab, seed=3)
     jnew, jopt, jmet = _jax_step(jcfg, JA.AdamWConfig(**OPT))(jp, JA.adamw_init(jp),
                                                                _jb(batch))
-    tnew, topt, tmet = make_train_step(tcfg, TA.AdamWConfig(**OPT))(
+    tnew, topt, tmet = make_train_step(tcfg, None, TC.ShapeConfig("t", 16, 2, "train"), TA.AdamWConfig(**OPT)).fn(
         tp, TA.adamw_init(tp), _tb(batch))
     assert _rel(tmet["loss"], jmet["loss"]) <= 1e-5
     assert _rel(tmet["grad_norm"], jmet["grad_norm"]) <= 1e-5

@@ -378,8 +378,11 @@ def test_one_adamw_step_matches_jax(arch):
     jcfg, tcfg, jp, tp = _model(arch, max_seq=16, tame=True)
     batch = _inputs(jcfg, seed=19)
     jnew, jopt, jmet = _jax_step(jcfg, JA.AdamWConfig(**OPT))(jp, JA.adamw_init(jp), _jb(batch))
-    tnew, topt, tmet = make_train_step(tcfg, TA.AdamWConfig(**OPT), remat=False)(
-        tp, TA.adamw_init(tp), _tb(batch))
+    b, s = batch["tokens"].shape  # the shape sizes only the bundle's input_specs
+    shape = TC.ShapeConfig("t", s + (tcfg.n_img_tokens if tcfg.family == "vlm" else 0), b,
+                           "train")
+    tnew, topt, tmet = make_train_step(tcfg, None, shape, TA.AdamWConfig(**OPT),
+                                       remat=False).fn(tp, TA.adamw_init(tp), _tb(batch))
     for k in ("loss", "grad_norm", "lr"):
         assert abs(float(tmet[k]) - float(jmet[k])) <= 1e-5 * abs(float(jmet[k])), k
     assert int(topt["step"]) == int(jopt["step"]) == 1

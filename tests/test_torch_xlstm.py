@@ -257,7 +257,7 @@ def test_one_adamw_step_matches_jax():
     batch = _batch(jcfg.vocab, seed=3)
     jnew, jopt, jmet = _jax_step(jcfg, JA.AdamWConfig(**OPT))(jp, JA.adamw_init(jp),
                                                                _jb(batch))
-    tnew, topt, tmet = make_train_step(tcfg, TA.AdamWConfig(**OPT))(
+    tnew, topt, tmet = make_train_step(tcfg, None, TC.ShapeConfig("t", 16, 2, "train"), TA.AdamWConfig(**OPT)).fn(
         tp, TA.adamw_init(tp), _tb(batch))
     np.testing.assert_allclose(float(tmet["loss"]), float(jmet["loss"]), rtol=1e-5)
     np.testing.assert_allclose(float(tmet["grad_norm"]), float(jmet["grad_norm"]), rtol=1e-5)
