@@ -99,20 +99,18 @@ Phases, in order; any failure exits non-zero with its traceback:
                and at phase 5b's shapes (phi-3-vision, whisper), and K2 at
                phase 5c's step (B = 2, 1024 valid slots of 1024).
 7. breakdown - profiles of the prefill (1 x 512 tokens) and the decode tick
-               of gemma-2b, hymba-1.5b, granite-moe-3b-a800m and xlstm-125m
-               in the bf16
-               serve engine: the top six device ops and the port's kernels
-               wherever they rank; for granite-moe also the device time of
-               its MoE layers, router and expert FFNs (the rest of the
-               layer is the capacity dispatch and combine) and each step's
-               bound.
+               of the archs in BREAKDOWN_ARCHS (gemma-2b and
+               granite-moe-3b-a800m) in the bf16 serve engine: the top
+               six device ops and the port's kernels wherever they rank;
+               for granite-moe also the device time of its MoE layers,
+               router and expert FFNs (the rest of the layer is the
+               capacity dispatch and combine) and each step's bound.
 8. train     - ``repro_torch.launch.train.train`` on the card, which calls
                no kernel (the launch counters must not move): (a) gemma-2b
                at full width in bf16, B=4, S=512, 4 AdamW steps without
                remat: finite losses and grad norms, every param leaf moved
                by step 1; ms/step over steps 2-4, tokens/s, peak memory and
-               the step's bound; then one such step profiled, and its
-               forward, backward and AdamW update timed apart.  (b) gemma-2b
+               the step's bound.  (b) gemma-2b
                at full width cut to 2 layers in f32, B=1, S=128, wq and wk
                rescaled so the scores are O(1): one step on the card and
                one on the CPU from the same params: loss and grad norm
@@ -186,9 +184,9 @@ Phases, in order; any failure exits non-zero with its traceback:
                ``local_map`` islands) on a (1, 1) mesh over NCCL, a process
                group of one rank (one card holds no multi-rank mesh: NCCL
                refuses two ranks on a device and gloo has no all-gather of
-               CUDA tensors).  gemma-2b at full width and depth and
-               hymba-1.5b (the default scan, K4) at full width, its depth
-               cut to MESH_HYBRID_LAYERS for the script's time, bf16, B =
+               CUDA tensors).  gemma-2b and hymba-1.5b (the default scan,
+               K4) at full width, their depths cut to MESH_DENSE_LAYERS and
+               MESH_HYBRID_LAYERS for the script's time, bf16, B =
                8, 512-token prompts, 32 greedy decode steps, each run
                through the same bundles with ``mesh=None`` first: the tokens equal, the logits within the
                bf16 tolerance, every wrapper's launches equal (counters set
@@ -227,6 +225,33 @@ Phases, in order; any failure exits non-zero with its traceback:
                bundles and ``mesh=None`` (phase 11's ``_mesh_run``): tokens
                equal, logits within the bf16 tolerance, K1 n_layers and K2
                32 x n_layers launches on both.
+13. mesh-families - the moe, vlm, encdec and ssm families on phase 11's
+               (1, 1) NCCL mesh (one process group and mesh serve phases
+               11-13), full width, bf16, each model alone on the card.
+               (a) granite-moe-3b-a800m (4 layers; its MoE's dispatch and
+               expert FFNs in their ``local_map`` island, the router's
+               logits gathered whole), phi-3-vision-4.2b (4 layers, 576
+               stub image rows + 512 tokens, cache 1152), whisper-large-v3
+               (4 + 4 layers, 1500 stub frames, 192-token prompts, cache
+               448) and xlstm-125m (4 layers: three mLSTM blocks, then the
+               sLSTM), B = 8, 32 greedy steps, through the mesh bundles and
+               ``mesh=None`` on the same seed-0 params: tokens equal, logits
+               within the bf16 tolerance, K1 n_layers and K2 32 x n_layers
+               launches on both routes (every counter 0 for xlstm), the
+               cache placed by the decode bundle's ``out_shardings``;
+               prefill and step ms and peak memory of both.  (b)
+               granite-moe at 2 layers, B x S = MESH_TRAIN_B x
+               MESH_TRAIN_S, 2 steps (tp, ZeRO-1, remat) through
+               ``make_train_step(cfg, mesh, ...)`` against ``mesh=None``:
+               losses, aux and grad norms within the bf16 tolerance, every
+               param within it of its max |x|, no launch; ms a step, and
+               the bytes a rank of a (1, MESH_MOE_MODEL) mesh would send
+               into the MoE's reduction over "model" (from the specs).
+               (c) K1 and K2 at the local heads of a "model" axis, one
+               rank's heads at a time: granite-moe (24/8, D = 64) at 2, 4,
+               8, phi-3-vision (32/32, D = 96) at 2, 4 and whisper's
+               decoder (20/20, D = 64) at 2, 4, 5, each at (a)'s prompt
+               and cache, the ranks together equal to the plain version.
 
 The last three lines are the card's name and power limit, one JSON object
 with the per-kernel numbers, and ``{"ok": true, "device": {...}}``.
@@ -339,13 +364,16 @@ CELL_WINDOW_HELD_S = 4096
 TRAIN_CELL = ("gemma-2b", "train_4k", (2, 1))
 TRAIN_CELL_MAX_BYTES = 70 * 2**30
 PEAK_REL_TOL = 0.10  # the dry-run's peak against torch.cuda.max_memory_allocated
-# phase 11: the sharded bundles on a (1, 1) mesh at full width; hymba-1.5b's
-# depth is cut to MESH_HYBRID_LAYERS to keep the script within 420 s (on one
-# H100 at 700 W, with hymba at full depth, its DTensor decode steps took
-# 8-11 ms of host time a layer and the whole script 412.1-477.4 s)
+# phase 11: the sharded bundles on a (1, 1) mesh at full width; the depths
+# are cut to keep the script within 420 s: hymba-1.5b's to MESH_HYBRID_LAYERS
+# (on one H100 at 700 W, with hymba at full depth, its DTensor decode steps
+# took 8-11 ms of host time a layer and the whole script 412.1-477.4 s), and
+# gemma-2b's to MESH_DENSE_LAYERS to make room for phase 13 (at 18 layers
+# its run took 7.4 s with init)
 MESH_BATCH, MESH_PROMPT = 8, 512
 MESH_HYBRID_LAYERS = 8
-MESH_RUNS = [("gemma-2b", None), ("hymba-1.5b", MESH_HYBRID_LAYERS)]
+MESH_DENSE_LAYERS = 4
+MESH_RUNS = [("gemma-2b", MESH_DENSE_LAYERS), ("hymba-1.5b", MESH_HYBRID_LAYERS)]
 # the "model" axes whose gathered bytes phase 11 logs
 MESH_MODEL_AXES = {"gemma-2b": (2, 4), "hymba-1.5b": (5,)}
 # phase 12: the sharded train step (tp, ZeRO-1, remat) on a (1, 1) mesh at
@@ -361,6 +389,24 @@ MESH_TRAIN_B, MESH_TRAIN_S = 4, 512
 MESH_TRAIN_RUNS = [("gemma-2b", 2, 3), ("hymba-1.5b", MESH_HYBRID_LAYERS, 2)]
 MESH_TRAIN_OPT = dict(lr=1e-4, warmup_steps=1, total_steps=10)
 MESH_TRAIN_DP = 8  # the data axis of the (dp, 1) mesh whose bytes phase 12 computes
+# phase 13: the moe, vlm, encdec and ssm families on phase 11's (1, 1) mesh,
+# full width, bf16, B = MESH_BATCH, DECODE_STEPS greedy steps, through the
+# mesh bundles and mesh=None on the same seed-0 params: (arch, layers
+# (whisper's encoder cut alike), prompt tokens, cache slots).  granite-moe
+# keeps phase 4's cut; phi-3-vision's prompt is its 576 stub image rows and
+# 512 tokens, whisper's 1500 stub frames and 192 tokens (phase 5b's shapes);
+# xlstm-125m's 4 layers are three mLSTM blocks and the sLSTM block of layer 4
+MESH_FAMILY_RUNS = [("granite-moe-3b-a800m", 4, 512, 544), ("phi-3-vision-4.2b", 4, 512, 1152),
+                    ("whisper-large-v3", 4, 192, 448), ("xlstm-125m", 4, 512, 544)]
+# granite-moe's train step on that mesh (tp, ZeRO-1, remat; MESH_TRAIN_B x
+# MESH_TRAIN_S tokens): (arch, layers, steps); and the "model" axis of the
+# (1, m) mesh whose MoE reduction bytes it computes from the specs
+MESH_FAMILY_TRAIN = ("granite-moe-3b-a800m", 2, 2)
+MESH_MOE_MODEL = 8
+# K1 and K2 at the local heads of a "model" axis: (arch, model sizes), each at
+# its MESH_FAMILY_RUNS prompt (S) and cache
+MESH_FAMILY_HEADS = [("granite-moe-3b-a800m", (2, 4, 8)), ("phi-3-vision-4.2b", (2, 4)),
+                     ("whisper-large-v3", (2, 4, 5))]
 # the dry-run's accounting of phase 10's cells, run in a process of its own
 # (on meta: no card) while the card works through phases 3-9
 DRYRUN_SCRIPT = r"""
@@ -378,6 +424,11 @@ for bt in tbs:
                                    D.default_strategy(tarch, tshape), verbose=False)
 print("RESULT " + json.dumps(out))
 """
+# phase 7's profiled serve steps: gemma-2b and granite-moe-3b-a800m (its MoE
+# layer's parts).  hymba-1.5b's (7.8 s) and xlstm-125m's (24.0 s) profiles
+# were cut to make room for phase 13: they gate nothing, and their rows in
+# PERF.md stand from the runs that took them
+BREAKDOWN_ARCHS = ("gemma-2b", "granite-moe-3b-a800m")
 # phase 6's repeats of the plain versions (the kernels and the library calls
 # keep device_ms's and call_ms's defaults): a plain scan call takes ~47 ms
 # of host loop, and the plain times repeated within 2% between PRs 16 and 22
@@ -2363,57 +2414,6 @@ def train_parity(arch: str, layers: int, b: int, s: int, part: str = "b") -> dic
     return {"worst": {k: v[0] for k, v in worst.items()}, "planted_faults": len(planted_faults)}
 
 
-def train_breakdown() -> dict:
-    """One full-width step of (a), profiled (device busy time against wall
-    time, the top device ops), then the step's body once more with CUDA
-    events around its forward, backward and AdamW update, and the grad
-    norm of each layer's block params."""
-    import torch
-
-    from repro_torch.configs.base import ShapeConfig, get_config
-    from repro_torch.data import DataConfig, SyntheticDataset
-    from repro_torch.models.params import tree_leaves, tree_map
-    from repro_torch.models.transformer import forward_train
-    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
-    from repro_torch.steps import init_model, make_train_step
-
-    arch, b, s, _ = TRAIN_FULL
-    cfg = get_config(arch)
-    _, params = init_model(cfg, seed=0, device="cuda")
-    opt = adamw_init(params)
-    batch = {k: torch.from_numpy(v).to("cuda") for k, v in
-             SyntheticDataset(DataConfig(cfg.vocab, s, b, seed=0)).batch(0).items()}
-    step = make_train_step(cfg, None, ShapeConfig("t", s, b, "train"), remat=False).fn
-    step(params, opt, batch)  # warm-up; the params now require grad
-    busy_ms, wall_ms, _ = _profile(f"{arch} train step (B={b} S={s})",
-                                   lambda: step(params, opt, batch))
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
-    ev[0].record()
-    total, _ = forward_train(params, cfg, batch, remat=False)
-    ev[1].record()
-    total.backward()
-    ev[2].record()
-    with torch.no_grad():  # each layer's grad norm, over its block leaves
-        layer_norms = torch.stack([
-            torch.linalg.vector_norm(p.grad, dim=tuple(range(1, p.grad.dim())),
-                                     dtype=torch.float32) ** 2
-            for p in tree_leaves(params["blocks"])]).sum(0).sqrt().tolist()
-        ev[3].record()
-        adamw_update(tree_map(lambda p: p.grad, params), opt, params, AdamWConfig())
-    ev[4].record()
-    torch.cuda.synchronize()
-    parts = {name: ev[i].elapsed_time(ev[i + 1])
-             for i, name in ((0, "forward"), (1, "backward"), (3, "adamw"))}
-    log("breakdown", f"{arch} train step by part (CUDA events): "
-        + ", ".join(f"{k} {v:.2f} ms" for k, v in parts.items()))
-    log("breakdown", f"{arch} grad norm of each layer's block params, layer 0 to "
-        f"{len(layer_norms) - 1} (the reference's init): "
-        + ", ".join(f"{x:.3g}" for x in layer_norms))
-    del params, opt, step, total
-    torch.cuda.empty_cache()
-    return {"busy_ms": busy_ms, "wall_ms": wall_ms, "layer_grad_norms": layer_norms, **parts}
-
-
 def train_resume() -> dict:
     """(c) crash at step 6 and resume from the step-4 checkpoint, on the card."""
     import tempfile
@@ -2452,8 +2452,8 @@ def phase_train() -> dict:
 
     t0 = time.perf_counter()
     before = ops.launches()
-    out = {"full": train_full(*TRAIN_FULL), "breakdown": train_breakdown(),
-           "parity": train_parity(*TRAIN_PARITY), "resume": train_resume()}
+    out = {"full": train_full(*TRAIN_FULL), "parity": train_parity(*TRAIN_PARITY),
+           "resume": train_resume()}
     for arch, b, s, steps, remat, scan in TRAIN_MORE:
         out[f"full {arch} {scan}"] = train_full(arch, b, s, steps, remat, scan, part="d")
     out["parity hybrid"] = train_parity(*TRAIN_PARITY_HYBRID, part="e")
@@ -3133,11 +3133,16 @@ def _placed(params) -> bool:
     return isinstance(tree_leaves(params)[0], DTensor)
 
 
-def _mesh_run(arch: str, cfg, mesh, params, tokens, steps: int) -> dict:
-    """One prefill and ``steps`` greedy decode steps through the bundles on
-    ``mesh`` (None: one device), the launch counters set to 0 just before
-    and read just after.  On a mesh, plain ``params`` are placed by the
-    prefill bundle's specs; DTensor ones must be placed so already."""
+def _mesh_run(arch: str, cfg, mesh, params, batch: dict, steps: int,
+              m_len: int | None = None) -> dict:
+    """One prefill of ``batch`` (the tokens and the stub frontend's
+    embeddings) and ``steps`` greedy decode steps through the bundles on
+    ``mesh`` (None: one device) with a cache of ``m_len`` slots (default:
+    prompt + steps), the launch counters set to 0 just before and read just
+    after, the peak memory from just before.  On a mesh, plain ``params``
+    are placed by the prefill bundle's specs; DTensor ones must be placed so
+    already; the cache must come out placed by the decode bundle's
+    ``out_shardings``."""
     import torch
 
     from repro_torch import sharding as SH
@@ -3145,8 +3150,8 @@ def _mesh_run(arch: str, cfg, mesh, params, tokens, steps: int) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.steps import make_decode_step, make_prefill_step
 
-    b, prompt = tokens.shape
-    m_len = prompt + steps
+    b, prompt = batch["tokens"].shape
+    m_len = m_len or prompt + steps
     pre = make_prefill_step(cfg, mesh, ShapeConfig("prefill", m_len, b, "prefill"))
     dec = make_decode_step(cfg, mesh, ShapeConfig("decode", m_len, b, "decode"))
     if mesh is not None and _placed(params):  # restored onto the bundle's specs
@@ -3154,14 +3159,15 @@ def _mesh_run(arch: str, cfg, mesh, params, tokens, steps: int) -> dict:
     elif mesh is not None:
         params = SH.distribute(params, mesh, pre.in_shardings[0])
 
-    def place(t, spec):  # the batch as the bundle takes it
-        return {"tokens": t} if mesh is None else SH.distribute({"tokens": t}, mesh, spec)
+    def place(inputs, spec):  # the batch as the bundle takes it
+        return inputs if mesh is None else SH.distribute(inputs, mesh, spec)
     pre_spec, dec_spec = (pre.in_shardings[1], dec.in_shardings[2]) if mesh else (None, None)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     SH.relayout.gathered_bytes = 0
     t0 = time.perf_counter()
-    logits, cache = pre.fn(params, place(tokens, pre_spec))
+    logits, cache = pre.fn(params, place(batch, pre_spec))
     nxt = logits.argmax(-1)
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
@@ -3170,7 +3176,7 @@ def _mesh_run(arch: str, cfg, mesh, params, tokens, steps: int) -> dict:
     all_logits, toks = [logits], []
     t0 = time.perf_counter()
     for _ in range(steps):
-        logits, cache = dec.fn(params, cache, place(nxt, dec_spec))
+        logits, cache = dec.fn(params, cache, place({"tokens": nxt}, dec_spec))
         nxt = logits.argmax(-1)
         all_logits.append(logits)
         toks.append(nxt)
@@ -3178,25 +3184,25 @@ def _mesh_run(arch: str, cfg, mesh, params, tokens, steps: int) -> dict:
     step_ms = (time.perf_counter() - t0) * 1e3 / steps
     launches = ops.launches()
     if mesh is not None:
-        want = tuple(SH.to_shardings(dec.out_shardings[1], mesh).values())
-        got = tuple(tuple(t.placements) for t in cache.values())
-        if got != want:
-            raise AssertionError(f"mesh {arch}: cache placements {got}, want {want}")
+        SH.check_placed(cache, mesh, dec.out_shardings[1], f"mesh {arch} cache")
     return {"logits": torch.stack([lg.float() for lg in all_logits]),
             "tokens": torch.cat(toks, dim=1), "launches": launches, "prefill_ms": prefill_ms,
             "step_ms": step_ms, "gathered_per_step": SH.relayout.gathered_bytes / steps,
-            "prefill_gathered": prefill_gathered}
+            "prefill_gathered": prefill_gathered, "peak": torch.cuda.max_memory_allocated()}
 
 
-def _hold_local_heads(what: str, hq: int, hkv: int, d: int, model: int) -> None:
-    """K1 and K2 at full width on each of ``model`` ranks' heads (q's sliced,
-    kv's sliced when Hkv divides ``model``, else whole: the rule of
-    ``layers._attention_layouts``), bf16, B = MESH_BATCH: each rank's call
-    against the plain version on the same local tensors, and the ranks'
-    outputs together against the plain version on all heads."""
+def _hold_local_heads(what: str, hq: int, hkv: int, d: int, model: int,
+                      s: int = MESH_PROMPT, m_len: int = MESH_PROMPT + DECODE_STEPS,
+                      tag: str = "mesh") -> None:
+    """K1 (S = ``s``) and K2 (a cache of ``m_len``) at full width on each of
+    ``model`` ranks' heads (q's sliced, kv's sliced when Hkv divides
+    ``model``, else whole: the rule of ``layers._attention_layouts``), bf16,
+    B = MESH_BATCH: each rank's call against the plain version on the same
+    local tensors, and the ranks' outputs together against the plain
+    version on all heads."""
     import torch
 
-    b, s, m_len = MESH_BATCH, MESH_PROMPT, MESH_PROMPT + DECODE_STEPS
+    b = MESH_BATCH
     lq, split_kv = hq // model, hkv % model == 0
     lkv = hkv // model if split_kv else hkv
     if hq % model or not (split_kv or hkv == 1):
@@ -3223,87 +3229,97 @@ def _hold_local_heads(what: str, hq: int, hkv: int, d: int, model: int) -> None:
                 "bfloat16")
     check_close(f"{what} K2 ranks together", torch.cat(douts, dim=2),
                 decode_plain(dq, dk, dv, dl), "bfloat16")
-    log("mesh", f"{what}: K1 (B={b}, S={s}) and K2 (M={m_len}, lengths "
+    log(tag, f"{what}: K1 (B={b}, S={s}) and K2 (M={m_len}, lengths "
         f"{int(lengths.min())}..{int(lengths.max())}) on each of {model} ranks' heads (Hq "
         f"{lq}, Hkv {lkv}, D {d}) within bf16 tol of their plain versions, max_abs_err "
         f"{worst:.3e}; the ranks together equal the plain version on {hq}/{hkv} heads")
 
 
-def phase_mesh() -> dict:
-    """Phase 11: the sharded prefill and decode bundles on a (1, 1) NCCL mesh
-    against the same bundles on one device, then K1 and K2 at the local
-    shapes of a "model" axis (see the module docstring)."""
-    import dataclasses
-
+@contextlib.contextmanager
+def mesh_group():
+    """A one-rank NCCL process group and its (1, 1) mesh, shared by phases
+    11-13, destroyed on the way out."""
     import torch
     import torch.distributed as dist
 
-    from repro_torch.configs import get_config
-    from repro_torch.kernels import ops
     from repro_torch.launch.mesh import make_local_mesh
-    from repro_torch.steps import init_model
 
     dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
                             device_id=torch.device("cuda", 0))
-    out = {}
     try:
         mesh = make_local_mesh(1, 1)
         log("mesh", f"{mesh}: axes {mesh.mesh_dim_names}, backend {dist.get_backend()}, "
             f"world size {dist.get_world_size()}")
-        for arch, layers in MESH_RUNS:
-            t0 = time.perf_counter()
-            cfg = get_config(arch, attention_impl="pallas")
-            if layers:
-                cfg = dataclasses.replace(cfg, n_layers=layers)
-            steps, m_len = DECODE_STEPS, MESH_PROMPT + DECODE_STEPS
-            _, params = init_model(cfg, seed=0, max_seq=m_len, device="cuda")
-            g = torch.Generator(device="cuda").manual_seed(11)
-            tokens = torch.randint(1, cfg.vocab, (MESH_BATCH, MESH_PROMPT), generator=g,
-                                   device="cuda", dtype=torch.int32)
-            plain = _mesh_run(arch, cfg, None, params, tokens, steps)
-            sharded = _mesh_run(arch, cfg, mesh, params, tokens, steps)
-            want = dict.fromkeys(ops.KERNELS, 0)
-            want.update(flash_attention=cfg.n_layers, decode_attention=cfg.n_layers * steps)
-            if cfg.family == "hybrid":
-                want["ssm_scan"] = cfg.n_layers
-            for name, run in (("mesh=None", plain), ("mesh", sharded)):
-                if run["launches"] != want:
-                    raise AssertionError(f"mesh {arch} {name}: launches {run['launches']}, "
-                                         f"want {want}")
-            if not torch.equal(sharded["tokens"], plain["tokens"]):
-                raise AssertionError(f"mesh {arch}: greedy tokens differ from mesh=None's")
-            err = check_close(f"mesh {arch} logits", sharded["logits"], plain["logits"],
-                              "bfloat16")
-            if not bool(torch.isfinite(plain["logits"]).all()):
-                raise AssertionError(f"mesh {arch}: non-finite logits")
-            predicted = {m: _mesh_gather_bytes(cfg, MESH_BATCH, m_len, m)
-                         for m in MESH_MODEL_AXES[arch]}
-            depth = f"depth cut to {layers} layers" if layers else "full depth"
-            log("mesh", f"{arch} bf16 full width, {depth} ({cfg.n_layers} layers), B="
-                f"{MESH_BATCH}, {MESH_PROMPT}-token prompts, {steps} greedy steps: tokens "
-                f"equal to mesh=None's ({MESH_BATCH} x {steps}, first row "
-                f"{sharded['tokens'][0, :8].tolist()}...), logits max_abs_err {err:.3e}; "
-                f"launches {sharded['launches']} on both")
-            log("mesh", f"{arch}: prefill {sharded['prefill_ms']:.2f} ms on the mesh vs "
-                f"{plain['prefill_ms']:.2f} ms with mesh=None; decode step "
-                f"{sharded['step_ms']:.2f} ms vs {plain['step_ms']:.2f} ms "
-                f"(x{sharded['step_ms'] / plain['step_ms']:.2f}: DTensor's host overhead, "
-                f"{(sharded['step_ms'] - plain['step_ms']) / cfg.n_layers:.2f} ms a layer)")
-            log("mesh", f"{arch}: bytes gathered per decode step on (1, 1): "
-                f"{sharded['gathered_per_step']:.0f} (prefill {sharded['prefill_gathered']:.0f});"
-                " a rank of a (1, m) mesh would gather " + ", ".join(
-                    f"m={m}: {v:.0f} ({v / 2**20:.2f} MiB)" for m, v in predicted.items())
-                + f"; {time.perf_counter() - t0:.1f}s with init")
-            out[arch] = {k: v for k, v in sharded.items() if k not in ("logits", "tokens")}
-            out[arch]["plain"] = {k: plain[k] for k in ("prefill_ms", "step_ms", "launches")}
-            del params, plain, sharded
-            torch.cuda.empty_cache()
-        for arch, model in (("gemma-2b", 2), ("gemma-2b", 4), ("hymba-1.5b", 5)):
-            cfg = get_config(arch)
-            _hold_local_heads(f"{arch} at model={model}", cfg.n_heads, cfg.n_kv_heads,
-                              cfg.resolved_head_dim, model)
+        yield mesh
     finally:
         dist.destroy_process_group()
+
+
+def phase_mesh(mesh) -> dict:
+    """Phase 11: the sharded prefill and decode bundles on the (1, 1) NCCL
+    mesh against the same bundles on one device, then K1 and K2 at the local
+    shapes of a "model" axis (see the module docstring)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.steps import init_model
+
+    out = {}
+    for arch, layers in MESH_RUNS:
+        t0 = time.perf_counter()
+        cfg = get_config(arch, attention_impl="pallas")
+        if layers:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        steps, m_len = DECODE_STEPS, MESH_PROMPT + DECODE_STEPS
+        _, params = init_model(cfg, seed=0, max_seq=m_len, device="cuda")
+        g = torch.Generator(device="cuda").manual_seed(11)
+        tokens = torch.randint(1, cfg.vocab, (MESH_BATCH, MESH_PROMPT), generator=g,
+                               device="cuda", dtype=torch.int32)
+        plain = _mesh_run(arch, cfg, None, params, {"tokens": tokens}, steps)
+        sharded = _mesh_run(arch, cfg, mesh, params, {"tokens": tokens}, steps)
+        want = dict.fromkeys(ops.KERNELS, 0)
+        want.update(flash_attention=cfg.n_layers, decode_attention=cfg.n_layers * steps)
+        if cfg.family == "hybrid":
+            want["ssm_scan"] = cfg.n_layers
+        for name, run in (("mesh=None", plain), ("mesh", sharded)):
+            if run["launches"] != want:
+                raise AssertionError(f"mesh {arch} {name}: launches {run['launches']}, "
+                                     f"want {want}")
+        if not torch.equal(sharded["tokens"], plain["tokens"]):
+            raise AssertionError(f"mesh {arch}: greedy tokens differ from mesh=None's")
+        err = check_close(f"mesh {arch} logits", sharded["logits"], plain["logits"],
+                          "bfloat16")
+        if not bool(torch.isfinite(plain["logits"]).all()):
+            raise AssertionError(f"mesh {arch}: non-finite logits")
+        predicted = {m: _mesh_gather_bytes(cfg, MESH_BATCH, m_len, m)
+                     for m in MESH_MODEL_AXES[arch]}
+        depth = f"depth cut to {layers} layers" if layers else "full depth"
+        log("mesh", f"{arch} bf16 full width, {depth} ({cfg.n_layers} layers), B="
+            f"{MESH_BATCH}, {MESH_PROMPT}-token prompts, {steps} greedy steps: tokens "
+            f"equal to mesh=None's ({MESH_BATCH} x {steps}, first row "
+            f"{sharded['tokens'][0, :8].tolist()}...), logits max_abs_err {err:.3e}; "
+            f"launches {sharded['launches']} on both")
+        log("mesh", f"{arch}: prefill {sharded['prefill_ms']:.2f} ms on the mesh vs "
+            f"{plain['prefill_ms']:.2f} ms with mesh=None; decode step "
+            f"{sharded['step_ms']:.2f} ms vs {plain['step_ms']:.2f} ms "
+            f"(x{sharded['step_ms'] / plain['step_ms']:.2f}: DTensor's host overhead, "
+            f"{(sharded['step_ms'] - plain['step_ms']) / cfg.n_layers:.2f} ms a layer)")
+        log("mesh", f"{arch}: bytes gathered per decode step on (1, 1): "
+            f"{sharded['gathered_per_step']:.0f} (prefill {sharded['prefill_gathered']:.0f});"
+            " a rank of a (1, m) mesh would gather " + ", ".join(
+                f"m={m}: {v:.0f} ({v / 2**20:.2f} MiB)" for m, v in predicted.items())
+            + f"; {time.perf_counter() - t0:.1f}s with init")
+        out[arch] = {k: v for k, v in sharded.items() if k not in ("logits", "tokens")}
+        out[arch]["plain"] = {k: plain[k] for k in ("prefill_ms", "step_ms", "launches")}
+        del params, plain, sharded
+        torch.cuda.empty_cache()
+    for arch, model in (("gemma-2b", 2), ("gemma-2b", 4), ("hymba-1.5b", 5)):
+        cfg = get_config(arch)
+        _hold_local_heads(f"{arch} at model={model}", cfg.n_heads, cfg.n_kv_heads,
+                          cfg.resolved_head_dim, model)
     return out
 
 
@@ -3466,9 +3482,9 @@ def _checkpoint_and_serve(cfg, mesh, run: dict) -> dict:
     g = torch.Generator(device="cuda").manual_seed(11)
     tokens = torch.randint(1, cfg.vocab, (MESH_BATCH, MESH_PROMPT), generator=g,
                            device="cuda", dtype=torch.int32)
-    sharded = _mesh_run(cfg.name, serve_cfg, mesh, params, tokens, steps)
+    sharded = _mesh_run(cfg.name, serve_cfg, mesh, params, {"tokens": tokens}, steps)
     plain = _mesh_run(cfg.name, serve_cfg, None, tree_map(lambda t: t.full_tensor(), params),
-                      tokens, steps)
+                      {"tokens": tokens}, steps)
     want = dict.fromkeys(ops.KERNELS, 0)
     want.update(flash_attention=cfg.n_layers, decode_attention=cfg.n_layers * steps)
     for name, r in (("mesh=None", plain), ("mesh", sharded)):
@@ -3488,86 +3504,202 @@ def _checkpoint_and_serve(cfg, mesh, run: dict) -> dict:
     return out
 
 
-def phase_mesh_train() -> dict:
-    """Phase 12: the sharded train step on a (1, 1) NCCL mesh against the
+def _train_pair(arch: str, cfg, mesh, steps: int, tag: str) -> tuple:
+    """``_train_run`` with ``mesh=None``, then on ``mesh``, one on the card at a
+    time (the first's params kept on the host): losses, aux and grad norms
+    within the bf16 tolerance (relative), every param within it of its max
+    |x|.  Returns (the mesh run, the plain run's ms, first_ms and peak, its
+    metrics, the worst param's share)."""
+    import torch
+
+    from repro_torch.models.params import tree_leaves
+
+    plain = _train_run(cfg, None, steps)
+    host = [t.detach().to("cpu", copy=True) for t in tree_leaves(plain["params"])]
+    plain_metrics = plain["metrics"]
+    plain = {k: plain[k] for k in ("ms", "first_ms", "peak")}
+    torch.cuda.empty_cache()
+    run = _train_run(cfg, mesh, steps)
+    for i, (g, w) in enumerate(zip(run["metrics"], plain_metrics)):
+        for k in ("loss", "aux", "grad_norm"):
+            if abs(g[k] - w[k]) > TOL["bfloat16"] * abs(w[k]):
+                raise AssertionError(f"{tag} {arch} step {i + 1} {k}: {g[k]} on the mesh, "
+                                     f"{w[k]} with mesh=None")
+    return run, plain, plain_metrics, _held_params(f"{tag} {arch}", run["params"], host)
+
+
+def phase_mesh_train(mesh) -> dict:
+    """Phase 12: the sharded train step on the (1, 1) NCCL mesh against the
     same steps with ``mesh=None``, then the trained state checkpointed,
     restored onto the serving bundles' shardings and served (see the module
     docstring)."""
     import dataclasses
 
     import torch
-    import torch.distributed as dist
 
     from repro_torch.configs import get_config
-    from repro_torch.launch.mesh import make_local_mesh
-    from repro_torch.models.params import count_params, tree_leaves
+    from repro_torch.models.params import count_params
     from repro_torch.models.transformer import model_defs
 
-    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
-                            device_id=torch.device("cuda", 0))
     out = {}
-    try:
-        mesh = make_local_mesh(1, 1)
-        for arch, layers, steps in MESH_TRAIN_RUNS:
-            t0 = time.perf_counter()
-            cfg = get_config(arch)
-            if layers:
-                cfg = dataclasses.replace(cfg, n_layers=layers)
-            plain = _train_run(cfg, None, steps)
-            host = [t.detach().to("cpu", copy=True) for t in tree_leaves(plain["params"])]
-            plain_metrics = plain["metrics"]
-            plain = {k: plain[k] for k in ("ms", "first_ms", "peak")}
-            torch.cuda.empty_cache()
-            run = _train_run(cfg, mesh, steps)
-            for i, (g, w) in enumerate(zip(run["metrics"], plain_metrics)):
-                for k in ("loss", "grad_norm"):
-                    if abs(g[k] - w[k]) > TOL["bfloat16"] * abs(w[k]):
-                        raise AssertionError(f"mesh train {arch} step {i + 1} {k}: {g[k]} on "
-                                             f"the mesh, {w[k]} with mesh=None")
-            worst = _held_params(f"mesh train {arch}", run["params"], host)
-            del host
-            dp_reduced, dp_gathered = _dp_train_bytes(cfg, MESH_TRAIN_DP)
-            depth = f"depth cut to {layers} layers" if layers else "full depth"
-            log("mesh-train", f"{arch} {cfg.dtype} full width ({count_params(model_defs(cfg))} "
-                f"params), {depth}, B={MESH_TRAIN_B} S={MESH_TRAIN_S}, {steps} AdamW steps "
-                f"(tp, ZeRO-1, remat) on the (1, 1) mesh and with mesh=None: losses "
-                f"{[round(m['loss'], 4) for m in run['metrics']]} vs "
-                f"{[round(m['loss'], 4) for m in plain_metrics]}, grad norms "
-                f"{[round(m['grad_norm'], 4) for m in run['metrics']]} vs "
-                f"{[round(m['grad_norm'], 4) for m in plain_metrics]}; every param within "
-                f"{worst:.3e} of max |x| (bf16 tol {TOL['bfloat16']}); no kernel launched")
-            log("mesh-train", f"{arch}: {run['ms']:.2f} ms a step on the mesh vs "
-                f"{plain['ms']:.2f} ms with mesh=None (steps 2-{steps}; step 1 "
-                f"{run['first_ms']:.2f} vs {plain['first_ms']:.2f}); peak "
-                f"{run['peak'] / 2**30:.2f} vs {plain['peak'] / 2**30:.2f} GiB; bytes a step "
-                f"on (1, 1): grads reduced {run['reduced']:.0f}, ZeRO-1 gathered "
-                f"{run['gathered']:.0f}; a rank of a ({MESH_TRAIN_DP}, 1) mesh would reduce "
-                f"{dp_reduced} ({dp_reduced / 2**30:.2f} GiB) and gather {dp_gathered} "
-                f"({dp_gathered / 2**30:.2f} GiB) (from the specs)")
-            out[arch] = {"ms": run["ms"], "plain_ms": plain["ms"], "peak": run["peak"],
-                         "reduced": run["reduced"], "gathered": run["gathered"],
-                         "dp_reduced": dp_reduced, "dp_gathered": dp_gathered}
-            if arch == MESH_TRAIN_RUNS[0][0]:
-                c = _checkpoint_and_serve(cfg, mesh, run)
-                out[arch]["ckpt"] = c
-                log("mesh-train", f"{arch} checkpoint of the trained state: opt state "
-                    f"{c['opt_bytes']} bytes saved in {c['opt_save_s']:.2f} s, restored with "
-                    f"its opt_pspecs in {c['opt_restore_s']:.2f} s; params "
-                    f"{c['params_bytes']} bytes saved in {c['params_save_s']:.2f} s, "
-                    f"restored onto the prefill bundle's in_shardings in "
-                    f"{c['params_restore_s']:.2f} s; both exact")
-                log("mesh-train", f"{arch} restored params served, B={MESH_BATCH}, "
-                    f"{MESH_PROMPT}-token prompts, {DECODE_STEPS} greedy steps: tokens equal "
-                    f"to mesh=None's (first row {c['first_tokens']}...), logits max_abs_err "
-                    f"{c['logits_err']:.3e}, launches "
-                    f"{c['launches']} on both; prefill {c['prefill_ms']:.2f} vs "
-                    f"{c['plain_prefill_ms']:.2f} ms, step {c['step_ms']:.2f} vs "
-                    f"{c['plain_step_ms']:.2f} ms")
-            del run
-            torch.cuda.empty_cache()
-            log("mesh-train", f"{arch} took {time.perf_counter() - t0:.1f}s with init")
-    finally:
-        dist.destroy_process_group()
+    for arch, layers, steps in MESH_TRAIN_RUNS:
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        if layers:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        run, plain, plain_metrics, worst = _train_pair(arch, cfg, mesh, steps, "mesh train")
+        dp_reduced, dp_gathered = _dp_train_bytes(cfg, MESH_TRAIN_DP)
+        depth = f"depth cut to {layers} layers" if layers else "full depth"
+        log("mesh-train", f"{arch} {cfg.dtype} full width ({count_params(model_defs(cfg))} "
+            f"params), {depth}, B={MESH_TRAIN_B} S={MESH_TRAIN_S}, {steps} AdamW steps "
+            f"(tp, ZeRO-1, remat) on the (1, 1) mesh and with mesh=None: losses "
+            f"{[round(m['loss'], 4) for m in run['metrics']]} vs "
+            f"{[round(m['loss'], 4) for m in plain_metrics]}, grad norms "
+            f"{[round(m['grad_norm'], 4) for m in run['metrics']]} vs "
+            f"{[round(m['grad_norm'], 4) for m in plain_metrics]}; every param within "
+            f"{worst:.3e} of max |x| (bf16 tol {TOL['bfloat16']}); no kernel launched")
+        log("mesh-train", f"{arch}: {run['ms']:.2f} ms a step on the mesh vs "
+            f"{plain['ms']:.2f} ms with mesh=None (steps 2-{steps}; step 1 "
+            f"{run['first_ms']:.2f} vs {plain['first_ms']:.2f}); peak "
+            f"{run['peak'] / 2**30:.2f} vs {plain['peak'] / 2**30:.2f} GiB; bytes a step "
+            f"on (1, 1): grads reduced {run['reduced']:.0f}, ZeRO-1 gathered "
+            f"{run['gathered']:.0f}; a rank of a ({MESH_TRAIN_DP}, 1) mesh would reduce "
+            f"{dp_reduced} ({dp_reduced / 2**30:.2f} GiB) and gather {dp_gathered} "
+            f"({dp_gathered / 2**30:.2f} GiB) (from the specs)")
+        out[arch] = {"ms": run["ms"], "plain_ms": plain["ms"], "peak": run["peak"],
+                     "reduced": run["reduced"], "gathered": run["gathered"],
+                     "dp_reduced": dp_reduced, "dp_gathered": dp_gathered}
+        if arch == MESH_TRAIN_RUNS[0][0]:
+            c = _checkpoint_and_serve(cfg, mesh, run)
+            out[arch]["ckpt"] = c
+            log("mesh-train", f"{arch} checkpoint of the trained state: opt state "
+                f"{c['opt_bytes']} bytes saved in {c['opt_save_s']:.2f} s, restored with "
+                f"its opt_pspecs in {c['opt_restore_s']:.2f} s; params "
+                f"{c['params_bytes']} bytes saved in {c['params_save_s']:.2f} s, "
+                f"restored onto the prefill bundle's in_shardings in "
+                f"{c['params_restore_s']:.2f} s; both exact")
+            log("mesh-train", f"{arch} restored params served, B={MESH_BATCH}, "
+                f"{MESH_PROMPT}-token prompts, {DECODE_STEPS} greedy steps: tokens equal "
+                f"to mesh=None's (first row {c['first_tokens']}...), logits max_abs_err "
+                f"{c['logits_err']:.3e}, launches "
+                f"{c['launches']} on both; prefill {c['prefill_ms']:.2f} vs "
+                f"{c['plain_prefill_ms']:.2f} ms, step {c['step_ms']:.2f} vs "
+                f"{c['plain_step_ms']:.2f} ms")
+        del run
+        torch.cuda.empty_cache()
+        log("mesh-train", f"{arch} took {time.perf_counter() - t0:.1f}s with init")
+    return out
+
+
+def _moe_reduce_bytes(cfg, b: int, s: int, model: int) -> float:
+    """Bytes one rank of a (1, ``model``) mesh sends into the MoE's reduction
+    over "model" in one forward of B x S tokens, from the specs: where the
+    rules put the experts over "model", each MoE layer's f32 combine (B, S,
+    d) is a ``Partial`` sum reduced once (``models/moe._dispatch_on_mesh``);
+    0 where the expert dim stays whole."""
+    from repro_torch import sharding as SH
+    from repro_torch.models.moe import moe_defs
+
+    mesh = {"data": 1, "model": model}
+    w1 = moe_defs(cfg)["w1"]
+    spec = SH.spec_for(w1.shape, w1.axes, SH.make_rules(mesh, "tp"), mesh)
+    return float(cfg.n_layers * b * s * cfg.d_model * 4) if spec[0] == "model" else 0.0
+
+
+def phase_mesh_families(mesh) -> dict:
+    """Phase 13: the moe, vlm, encdec and ssm families on the (1, 1) NCCL mesh
+    (see the module docstring): (a) prefill and decode through the mesh
+    bundles against ``mesh=None``, (b) granite-moe's train step, (c) K1 and
+    K2 at the new families' local heads."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.steps import init_model
+
+    out = {}
+    for arch, layers, prompt, m_len in MESH_FAMILY_RUNS:
+        t0 = time.perf_counter()
+        cfg = get_config(arch, attention_impl="pallas")
+        cfg = dataclasses.replace(cfg, n_layers=layers,
+                                  **({"n_enc_layers": layers} if cfg.n_enc_layers else {}))
+        steps = DECODE_STEPS
+        _, params = init_model(cfg, seed=0, max_seq=m_len, device="cuda")
+        g = torch.Generator(device="cuda").manual_seed(11)
+        tokens = torch.randint(1, cfg.vocab, (MESH_BATCH, prompt), generator=g,
+                               device="cuda", dtype=torch.int32)
+        batch = stub_inputs(cfg, tokens)
+        plain = _mesh_run(arch, cfg, None, params, batch, steps, m_len)
+        sharded = _mesh_run(arch, cfg, mesh, params, batch, steps, m_len)
+        want = dict.fromkeys(ops.KERNELS, 0)
+        if cfg.family != "ssm":
+            want.update(flash_attention=cfg.n_layers, decode_attention=cfg.n_layers * steps)
+        for name, run in (("mesh=None", plain), ("mesh", sharded)):
+            if run["launches"] != want:
+                raise AssertionError(f"mesh family {arch} {name}: launches "
+                                     f"{run['launches']}, want {want}")
+        if not torch.equal(sharded["tokens"], plain["tokens"]):
+            raise AssertionError(f"mesh family {arch}: greedy tokens differ from mesh=None's")
+        if not bool(torch.isfinite(plain["logits"]).all()):
+            raise AssertionError(f"mesh family {arch}: non-finite logits")
+        err = check_close(f"mesh family {arch} logits", sharded["logits"], plain["logits"],
+                          "bfloat16")
+        rows = {"vlm": f"{cfg.n_img_tokens} stub image rows + ",
+                "encdec": f"{cfg.enc_frames} stub frames, "}.get(cfg.family, "")
+        log("mesh-families", f"{arch} bf16 full width, {layers} layers"
+            f"{' (and encoder)' if cfg.n_enc_layers else ''}, B={MESH_BATCH}, {rows}{prompt}"
+            f"-token prompts, cache {m_len}, {steps} greedy steps: tokens equal to "
+            f"mesh=None's (first row {sharded['tokens'][0, :8].tolist()}...), logits "
+            f"max_abs_err {err:.3e}; launches {sharded['launches']} on both")
+        log("mesh-families", f"{arch}: prefill {sharded['prefill_ms']:.2f} ms on the mesh vs "
+            f"{plain['prefill_ms']:.2f} ms with mesh=None; decode step "
+            f"{sharded['step_ms']:.2f} ms vs {plain['step_ms']:.2f} ms "
+            f"(x{sharded['step_ms'] / plain['step_ms']:.2f}); peak "
+            f"{sharded['peak'] / 2**30:.2f} vs {plain['peak'] / 2**30:.2f} GiB; "
+            f"{time.perf_counter() - t0:.1f}s with init")
+        out[arch] = {k: v for k, v in sharded.items() if k not in ("logits", "tokens")}
+        out[arch]["plain"] = {k: plain[k] for k in ("prefill_ms", "step_ms", "peak")}
+        del params, plain, sharded, batch
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    arch, layers, steps = MESH_FAMILY_TRAIN
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    run, plain, plain_metrics, worst = _train_pair(arch, cfg, mesh, steps, "mesh family train")
+    moe_bytes = _moe_reduce_bytes(cfg, MESH_TRAIN_B, MESH_TRAIN_S, MESH_MOE_MODEL)
+    log("mesh-families", f"{arch} {cfg.dtype} full width, {layers} layers, B={MESH_TRAIN_B} "
+        f"S={MESH_TRAIN_S}, {steps} AdamW steps (tp, ZeRO-1, remat) on the (1, 1) mesh and "
+        f"with mesh=None: losses {[round(m['loss'], 4) for m in run['metrics']]} vs "
+        f"{[round(m['loss'], 4) for m in plain_metrics]}, aux "
+        f"{[round(m['aux'], 4) for m in run['metrics']]} vs "
+        f"{[round(m['aux'], 4) for m in plain_metrics]}, grad norms "
+        f"{[round(m['grad_norm'], 4) for m in run['metrics']]} vs "
+        f"{[round(m['grad_norm'], 4) for m in plain_metrics]}; every param within "
+        f"{worst:.3e} of max |x| (bf16 tol {TOL['bfloat16']}); no kernel launched")
+    log("mesh-families", f"{arch}: {run['ms']:.2f} ms a step on the mesh vs {plain['ms']:.2f} "
+        f"ms with mesh=None (step 1 {run['first_ms']:.2f} vs {plain['first_ms']:.2f}); peak "
+        f"{run['peak'] / 2**30:.2f} vs {plain['peak'] / 2**30:.2f} GiB; bytes a step on "
+        f"(1, 1): reduced {run['reduced']:.0f}, gathered {run['gathered']:.0f}; a rank of a "
+        f"(1, {MESH_MOE_MODEL}) mesh would send {moe_bytes:.0f} ({moe_bytes / 2**20:.2f} MiB) "
+        f"into the MoE's reduction over \"model\" a forward (from the specs; remat's "
+        f"recompute repeats it); {time.perf_counter() - t0:.1f}s with init")
+    out["train"] = {"ms": run["ms"], "plain_ms": plain["ms"], "peak": run["peak"],
+                    "moe_reduce_bytes": moe_bytes}
+    del run
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    shapes = {arch: (prompt + (get_config(arch).n_img_tokens or 0), m_len)
+              for arch, _, prompt, m_len in MESH_FAMILY_RUNS}
+    for arch, models in MESH_FAMILY_HEADS:
+        cfg = get_config(arch)
+        s, m_len = shapes[arch]
+        for model in models:
+            _hold_local_heads(f"{arch} at model={model}", cfg.n_heads, cfg.n_kv_heads,
+                              cfg.resolved_head_dim, model, s, m_len, "mesh-families")
+    log("mesh-families", f"local heads took {time.perf_counter() - t0:.1f}s")
     return out
 
 
@@ -3640,7 +3772,7 @@ def _phases(t_start: float, smi: str, proc) -> int:
     t0 = time.perf_counter()
     kernels = phase_timing(worst, serves, fresh)
     log("timing", f"phase took {time.perf_counter() - t0:.1f}s")
-    for arch in ("gemma-2b", "hymba-1.5b", "granite-moe-3b-a800m", "xlstm-125m"):
+    for arch in BREAKDOWN_ARCHS:
         phase_breakdown(arch)
     phase_train()
     t0 = time.perf_counter()
@@ -3649,12 +3781,16 @@ def _phases(t_start: float, smi: str, proc) -> int:
     t0 = time.perf_counter()
     phase_cells(_Dryrun(proc), kernels)
     log("cells", f"phase took {time.perf_counter() - t0:.1f}s")
-    t0 = time.perf_counter()
-    phase_mesh()
-    log("mesh", f"phase took {time.perf_counter() - t0:.1f}s")
-    t0 = time.perf_counter()
-    phase_mesh_train()
-    log("mesh-train", f"phase took {time.perf_counter() - t0:.1f}s")
+    with mesh_group() as mesh:
+        t0 = time.perf_counter()
+        phase_mesh(mesh)
+        log("mesh", f"phase took {time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
+        phase_mesh_train(mesh)
+        log("mesh-train", f"phase took {time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
+        phase_mesh_families(mesh)
+        log("mesh-families", f"phase took {time.perf_counter() - t0:.1f}s")
     log("done", f"all phases passed in {time.perf_counter() - t_start:.1f}s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -27,7 +27,7 @@ A kernel call is charged the same work whether it launched or ran on
 ``meta``, so the card's count of a step equals its dry-run's.  Collectives
 have no counterpart on one device: ``no_collectives`` keeps the record's
 keys at zero until the dry-run runs on a mesh (ROADMAP.md Queue 1 item
-5a-iii).
+5a-iv).
 
 Hardware model: one H100 SXM (``launch/mesh.py::HW``).
 """
@@ -163,7 +163,7 @@ class StepCost(TorchDispatchMode):
 
 def no_collectives() -> Dict[str, Any]:
     """The reference's collective statistics, all zero: one device runs no
-    collective (a mesh's: ROADMAP.md Queue 1 item 5a-iii)."""
+    collective (a mesh's: ROADMAP.md Queue 1 item 5a-iv)."""
     return {"counts": {}, "operand_bytes": {}, "wire_bytes": {}, "total_operand": 0,
             "total_wire": 0}
 

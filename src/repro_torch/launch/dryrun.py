@@ -12,7 +12,7 @@ Usage:
 Differences from the reference:
 - One device: the record says ``n_chips`` 1; ``--multi-pod``,
   ``--both-meshes`` and the strategy's shardings wait for ROADMAP.md Queue 1
-  item 5a-iii, and the collective statistics are zeros.
+  item 5a-iv, and the collective statistics are zeros.
   ``strategy`` is recorded as the reference's default for the cell (or
   ``run_cell``'s argument); the CLI has no ``--strategy``, since on one
   device no choice changes the count.
@@ -113,7 +113,7 @@ def account(arch: str, cfg: ModelConfig, shape: ShapeConfig, strategy: str,
         "kernel_bytes": cost.kernel_bytes,
         "collectives": coll,
         "collectives_scanned": no_collectives(),
-        "collectives_note": "one device: no collective until Queue 1 item 5a-iii",
+        "collectives_note": "one device: no collective until Queue 1 item 5a-iv",
         "memory": mem,
         "roofline": terms,
         "model_flops_global": mf,

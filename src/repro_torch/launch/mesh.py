@@ -4,7 +4,7 @@ H100 SXM 80 GB.
 
 ``make_local_mesh`` is a function, so importing this module touches no
 process group or device.  ``make_production_mesh`` (16 x 16 and 2 x 16 x 16)
-waits for ROADMAP.md Queue 1 item 5a-iii; the sharding rules take its layout
+waits for ROADMAP.md Queue 1 item 5a-iv; the sharding rules take its layout
 as a plain ``{name: size}`` dict meanwhile (``repro_torch.sharding``).
 """
 from __future__ import annotations

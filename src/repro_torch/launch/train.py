@@ -24,9 +24,9 @@ or ``fsdp_tp``) and ``--no-zero1`` keeps the moments placed as their
 params.  At 1 x 1 there is no mesh (``mesh=None``, one device); past it the
 ranks are torchrun's (``torchrun --nproc-per-node <data x model>``): the
 launcher starts a process group from its environment (NCCL on the cards,
-gloo with ``--device cpu``) and raises without it.  On a mesh the dense and
-hybrid families train (the others wait for ROADMAP.md Queue 1 item 5a-iii),
-rank 0 prints and writes the checkpoints.  A rerun with the same
+gloo with ``--device cpu``) and raises without it.  On a mesh all six
+families train (dense, vlm, hybrid, moe, encdec and ssm); rank 0 prints
+and writes the checkpoints.  A rerun with the same
 ``--ckpt-dir`` resumes from its latest checkpoint, on any mesh.
 
 ``train`` holds the loop of the reference's ``jaxlocal.train_job`` and is

@@ -1,2 +1,2 @@
-"""Decoder models (dense and hybrid): params, layers, the SSM mixer, stack
-assembly, prefill/decode."""
+"""The models of every family: params, layers, the SSM mixer, the MoE
+layer, the xLSTM blocks, stack assembly, prefill/decode."""

@@ -29,12 +29,15 @@ Unlike the reference, ``decode_step`` writes the new K/V and recurrent states
 into the cache it is given, in place, and returns that cache with a new
 ``pos`` (xlstm returns new state dicts).
 
-On a mesh (DTensor params and inputs, ``steps.py``; the dense and hybrid
-families, ``MESH_FAMILIES``) ``prefill``'s cache is born a DTensor with the
-placements of ``sharding.cache_pspecs``, and every write keeps them: a
-layer's K/V and state are re-placed to the cache's layout before they are
-copied in, and ``decode_step`` writes each rank's own shard
-(``layers.attn_decode``).
+On a mesh (DTensor params and inputs, ``steps.py``; every family)
+``prefill``'s cache is born a DTensor with the placements of
+``sharding.cache_pspecs``, and every write keeps them: a layer's K/V, its
+recurrent state and encdec's cross K/V are re-placed to the cache's layout
+before they are copied in, and ``decode_step`` writes each rank's own
+shard (``layers.attn_decode``).  The xlstm states a step returns are
+re-placed to their ``cache_pspecs`` placements (``_placed_states``).  The
+production mesh and the dry-run on a mesh wait for ROADMAP.md Queue 1
+item 5a-iv.
 """
 from __future__ import annotations
 
@@ -54,30 +57,20 @@ from repro_torch.models.transformer import (_apply_block, _embed_inputs, _ffn, _
 
 Params = Dict[str, Any]
 
-# the families that run on a mesh; the others wait for ROADMAP.md Queue 1
-# item 5a-iii
-MESH_FAMILIES = ("dense", "hybrid")
-
-
-def check_mesh_family(cfg: ModelConfig) -> None:
-    """Raise for a family whose paths are not ported to a mesh (any mesh,
-    (1, 1) included: they build plain tensors that DTensor refuses to mix)."""
-    if cfg.family not in MESH_FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) does not run on a mesh yet: ROADMAP.md "
-            f"Queue 1 item 5a-iii brings it; on a mesh the port runs {MESH_FAMILIES}")
-
-
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, window: int = 0,
                device="cuda", mesh=None) -> Dict[str, Any]:
     """An empty cache of ``batch`` rows; its K/V hold M = min(window,
     max_len) slots when ``window`` > 0, else ``max_len``.  With a ``mesh``
     (a ``DeviceMesh``) every leaf is a DTensor of zeros placed by
     ``sharding.cache_pspecs``, each rank allocating its shard alone."""
+    if mesh is not None and cfg.family == "ssm":  # states born placed, not all zeros
+        blocks = [XL.init_mlstm_state(cfg, batch, mesh=mesh) if kind == "mlstm"
+                  else XL.init_slstm_state(cfg, batch, mesh=mesh)
+                  for kind in xlstm_layer_kinds(cfg)]
+        return {"blocks": blocks, "pos": _xlstm_pos(batch, 0, blocks[0]["m"])}
     if mesh is not None:
         from torch.distributed.tensor import zeros
 
-        check_mesh_family(cfg)
         spec = cache_specs(cfg, batch, max_len, window)
         return SH.tree_map(lambda t, p: zeros(t.shape, dtype=t.dtype, device_mesh=mesh,
                                               placements=SH.placements(p, mesh)),
@@ -162,14 +155,29 @@ def _store(dst: torch.Tensor, src: torch.Tensor) -> None:
     dst.copy_(src)
 
 
+def _xlstm_pos(b: int, s: int, like: torch.Tensor) -> torch.Tensor:
+    return SH.replicate_like(torch.full((b,), s, dtype=torch.int32, device=like.device), like)
+
+
+def _placed_states(cfg: ModelConfig, states: list, pos: torch.Tensor) -> Dict[str, Any]:
+    """The xlstm cache; on a mesh each state leaf re-placed to its
+    ``cache_pspecs`` placements (a step's ops leave them where DTensor's
+    rules put them)."""
+    cache = {"blocks": states, "pos": pos}
+    if not isinstance(pos, DTensor):
+        return cache
+    mesh = pos.device_mesh
+    return SH.tree_map(lambda t, p: SH.relayout(t, SH.placements(p, mesh)),
+                       cache, SH.cache_pspecs(cfg, cache, mesh))
+
+
 def _prefill_xlstm(params: Params, cfg: ModelConfig, batch_inputs: Dict[str, torch.Tensor]
                    ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     x = L.embed_tokens(params["embed"], batch_inputs["tokens"], cfg)
     b, s, _ = x.shape
     x, states = _run_xlstm(params, x, cfg)
     x = L.apply_norm(params["ln_f"], x[:, -1:], cfg.norm)
-    pos = torch.full((b,), s, dtype=torch.int32, device=x.device)
-    return L.unembed(params["embed"], x, cfg), {"blocks": states, "pos": pos}
+    return L.unembed(params["embed"], x, cfg), _placed_states(cfg, states, _xlstm_pos(b, s, x))
 
 
 def _decode_block(p: Params, x: torch.Tensor, layer: Dict[str, torch.Tensor],
@@ -235,4 +243,4 @@ def _decode_xlstm(params: Params, cfg: ModelConfig, cache: Dict[str, Any],
             x, st = XL.slstm_decode(p, x, st, cfg)
         states.append(st)
     x = L.apply_norm(params["ln_f"], x, cfg.norm)
-    return L.unembed(params["embed"], x, cfg), {"blocks": states, "pos": cache["pos"] + 1}
+    return L.unembed(params["embed"], x, cfg), _placed_states(cfg, states, cache["pos"] + 1)

@@ -166,6 +166,12 @@ def _plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     hd = cfg.resolved_head_dim
     q, dims = _whole_groups(q, k.shape[2])
     scores = _gqa_scores(q, k, cfg.n_heads // cfg.n_kv_heads, hd)
+    if isinstance(scores, DTensor) and any(p.is_partial() for p in scores.placements):
+        # K sharded on head_dim (a cache stored so: MQA's, or encdec's cross
+        # K/V when the heads do not divide "model") leaves the scores a
+        # partial sum: reduced here, its bytes counted
+        scores = SH.relayout(scores, [Replicate() if p.is_partial() else p
+                                      for p in scores.placements])
     return _regroup(_gqa_out(_masked_softmax(scores, mask, q.dtype), v), dims)
 
 

@@ -231,7 +231,7 @@ def encode(params: Params, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tens
     table, bidirectional blocks (the plain attention path on every
     ``attention_impl``), then its final norm."""
     x = frames.to(L.adtype(cfg)) + params["enc_pos"]["pos"][None, :frames.shape[1]]
-    positions = _positions(x.shape[0], x.shape[1], x.device)
+    positions = SH.replicate_like(_positions(x.shape[0], x.shape[1], x.device), x)
     for p in unbind_layers(params["enc_blocks"]):
         xn = L.apply_norm(p["ln_attn"], x, cfg.norm)
         x = x + L.attn_forward(p["attn"], xn, positions, cfg, causal=False)[0]

@@ -13,6 +13,11 @@ m (B,H) in f32 and conv (B,3,dp) in the activation dtype; the sLSTM's c, n,
 h and m (B,H,dh) in f32.  The mLSTM block returns its output without the
 residual (the caller adds it); the sLSTM block adds its own residual and its
 post-FFN.
+
+On a mesh (DTensor params and activations) the device-made constants are
+replicated DTensors (``sharding.replicate_like``) and an initial state is
+born with the placements ``sharding.cache_pspecs`` gives its leaf (pass
+``mesh``), each rank allocating its shard.
 """
 from __future__ import annotations
 
@@ -21,7 +26,9 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
+from repro_torch import sharding as SH
 from repro_torch.models.layers import adtype, apply_norm, norm_defs
 from repro_torch.models.params import ParamDef
 from repro_torch.models.ssm import _causal_conv
@@ -73,7 +80,8 @@ def _mlstm_qkvgates(p: Params, x: torch.Tensor, cfg, conv_state: Optional[torch.
     c, conv_state = _causal_conv(u, p["conv_w"], p["conv_b"], conv_state)
     c = F.silu(c)
     q = torch.einsum("bsd,dhk->bshk", c, p["w_q"])
-    scale = torch.full((), math.sqrt(q.shape[-1]), dtype=torch.float32, device=c.device)
+    scale = SH.replicate_like(torch.full((), math.sqrt(q.shape[-1]), dtype=torch.float32,
+                                         device=c.device), c)
     k = torch.einsum("bsd,dhk->bshk", c, p["w_k"]) / scale.to(c.dtype)
     v = torch.einsum("bsd,dhk->bshk", u, p["w_v"])
     ig = xn.float() @ p["w_i"] + p["b_i"]
@@ -90,9 +98,10 @@ def mlstm_forward(p: Params, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, State]
     fcum = torch.cumsum(_logsigmoid(fg), dim=1)  # (B,S,H)
     # log-decay matrix: D[i,j] = fcum_i - fcum_j + ig_j for j <= i, -inf above
     dmat = fcum[:, :, None, :] - fcum[:, None, :, :] + ig[:, None, :, :]  # (B,Si,Sj,H)
-    idx = torch.arange(s, device=x.device)
+    idx = SH.replicate_like(torch.arange(s, device=x.device), dmat)
     causal = (idx[None, :] <= idx[:, None])[None, :, :, None]
-    dmat = torch.where(causal, dmat, torch.full((), float("-inf"), device=x.device))
+    dmat = torch.where(causal, dmat, SH.replicate_like(
+        torch.full((), float("-inf"), device=x.device), dmat))
     m = torch.clamp(dmat.amax(dim=2, keepdim=True), min=-1e30)  # guard all -inf rows
     dprime = torch.exp(dmat - m)
     scores = torch.einsum("bihk,bjhk->bijh", q.float(), k.float())
@@ -139,16 +148,27 @@ def mlstm_decode(p: Params, x: torch.Tensor, state: State, cfg
     return y @ p["w_down"], {"C": C, "n": n, "m": m_new, "conv": conv_state}
 
 
-def init_mlstm_state(cfg, batch: int, device="cuda") -> State:
+def _state_leaf(shape, value: float, dtype: torch.dtype, device, mesh) -> torch.Tensor:
+    """A state leaf filled with ``value``: on ``mesh`` a DTensor placed as
+    ``sharding.cache_pspecs`` places its leaf, each rank making its shard."""
+    if mesh is None:
+        return torch.full(shape, value, dtype=dtype, device=device)
+    from torch.distributed.tensor import full
+
+    return full(shape, value, dtype=dtype, device_mesh=mesh,
+                placements=SH.placements(SH._auto_state_spec(shape, mesh), mesh))
+
+
+def init_mlstm_state(cfg, batch: int, device="cuda", mesh=None) -> State:
     dp = int(cfg.xlstm.proj_factor * cfg.d_model)
     h = cfg.n_heads
     dh = dp // h
-    f32 = dict(dtype=torch.float32, device=device)
+    f32 = dict(dtype=torch.float32, device=device, mesh=mesh)
     return {
-        "C": torch.zeros((batch, h, dh, dh), **f32),
-        "n": torch.zeros((batch, h, dh), **f32),
-        "m": torch.full((batch, h), -1e30, **f32),
-        "conv": torch.zeros((batch, 3, dp), dtype=adtype(cfg), device=device),
+        "C": _state_leaf((batch, h, dh, dh), 0.0, **f32),
+        "n": _state_leaf((batch, h, dh), 0.0, **f32),
+        "m": _state_leaf((batch, h), -1e30, **f32),
+        "conv": _state_leaf((batch, 3, dp), 0.0, adtype(cfg), device, mesh),
     }
 
 
@@ -204,7 +224,8 @@ def slstm_forward(p: Params, x: torch.Tensor, cfg, state: Optional[State] = None
     xn = apply_norm(p["norm"], x, cfg.norm)
     xg = torch.einsum("bsd,dghe->bsghe", xn.float(), p["w_x"])  # (B,S,4,H,dh)
     if state is None:
-        state = init_slstm_state(cfg, b, device=x.device)
+        state = init_slstm_state(cfg, b, device=x.device,
+                                 mesh=x.device_mesh if isinstance(x, DTensor) else None)
     hs = []
     for t in range(s):
         state = _slstm_cell(p, xg[:, t], state)
@@ -222,8 +243,8 @@ def slstm_decode(p: Params, x: torch.Tensor, state: State, cfg) -> Tuple[torch.T
     return slstm_forward(p, x, cfg, state)
 
 
-def init_slstm_state(cfg, batch: int, device="cuda") -> State:
+def init_slstm_state(cfg, batch: int, device="cuda", mesh=None) -> State:
     shape = (batch, cfg.n_heads, cfg.d_model // cfg.n_heads)
-    z = torch.zeros(shape, dtype=torch.float32, device=device)
-    return {"c": z, "n": z.clone(), "h": z.clone(),
-            "m": torch.full(shape, -1e30, dtype=torch.float32, device=device)}
+    f32 = dict(dtype=torch.float32, device=device, mesh=mesh)
+    return {"c": _state_leaf(shape, 0.0, **f32), "n": _state_leaf(shape, 0.0, **f32),
+            "h": _state_leaf(shape, 0.0, **f32), "m": _state_leaf(shape, -1e30, **f32)}

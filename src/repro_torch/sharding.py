@@ -322,11 +322,15 @@ relayout.gathered_bytes = 0
 relayout.reduced_bytes = 0
 
 
-def local_call(fn: Callable, in_pl: Sequence[Any], out_pl: Any, *args: DTensor) -> Any:
+def local_call(fn: Callable, in_pl: Sequence[Any], out_pl: Any, *args: DTensor,
+               grad_pl: Optional[Sequence[Any]] = None) -> Any:
     """``fn`` on each rank's local tensors of ``args``, each first re-placed
     to its entry of ``in_pl`` (``relayout``); the outputs become DTensors
     placed by ``out_pl`` (one placement tuple, or a tuple of them for a tuple
-    of outputs).  A kernel wrapper is called so: it sees plain tensors only."""
+    of outputs).  A kernel wrapper is called so: it sees plain tensors only.
+    ``grad_pl`` gives the placements of each argument's local grad where
+    they differ from ``in_pl`` (a ``Partial`` where each rank's grad is its
+    share of the sum); the default is ``in_pl``."""
     from torch.distributed.tensor.experimental import local_map
 
     mesh = args[0].device_mesh
@@ -334,8 +338,9 @@ def local_call(fn: Callable, in_pl: Sequence[Any], out_pl: Any, *args: DTensor) 
     # local_map reads a tuple as one placement list per output, a list as one
     one = all(isinstance(p, Placement) for p in out_pl)
     out = list(out_pl) if one else tuple(list(p) for p in out_pl)
+    grads = None if grad_pl is None else tuple(list(p) for p in grad_pl)
     return local_map(fn, out_placements=out, in_placements=tuple(list(p) for p in in_pl),
-                     device_mesh=mesh)(*args)
+                     in_grad_placements=grads, device_mesh=mesh)(*args)
 
 
 def kernel_layout(mesh: Any, spec: Sequence[Any]) -> Tuple[Placement, ...]:

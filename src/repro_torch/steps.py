@@ -20,8 +20,9 @@ placement, returns the logits as a full tensor and the cache with
 optimizer state placed by ``in_shardings`` (the moments by
 ``optim.adamw.opt_pspecs``, ZeRO-1 by default) and the batch over the
 data-parallel axes, and returns them placed by ``out_shardings``, with its
-0-d metrics as full tensors.  The dense and hybrid families run on a mesh;
-the others wait for ROADMAP.md Queue 1 item 5a-iii.
+0-d metrics as full tensors.  Every family runs on a mesh; the production
+mesh and the dry-run on a mesh wait for ROADMAP.md Queue 1 item 5a-iv, and
+the expert-parallel MoE routes for item 5b.
 """
 from __future__ import annotations
 
@@ -117,7 +118,6 @@ def _specs(cfg: ModelConfig, mesh, shape: ShapeConfig, strategy: str, window: in
            ) -> Tuple[Any, Any, Any]:
     """(param, batch, cache) specs of a cell on ``mesh`` (reference
     steps.py:131-137 and :156-162)."""
-    DEC.check_mesh_family(cfg)
     defs = TF.model_defs(cfg, max_seq=shape.seq_len)
     return (SH.param_pspecs(defs, SH.make_rules(mesh, strategy), mesh),
             SH.batch_pspecs(batch_specs(cfg, shape), mesh),
@@ -230,7 +230,6 @@ def make_train_step(cfg: ModelConfig, mesh, shape: ShapeConfig,
     defs = TF.model_defs(cfg, max_seq=shape.seq_len)
     ins = outs = None
     if mesh is not None:
-        DEC.check_mesh_family(cfg)
         rules = SH.make_rules(mesh, strategy)
         p_specs = SH.param_pspecs(defs, rules, mesh)
         o_specs = opt_pspecs(defs, rules, mesh, zero1=zero1)

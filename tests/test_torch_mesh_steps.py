@@ -170,9 +170,11 @@ def _jax_side(arch, over, mesh_shape, work: Path):
     return {"n_params": len(leaves)}, want
 
 
-def _run_ranks(work: Path) -> None:
+def _run_ranks(work: Path, script: str = __file__) -> None:
+    """Run ``script``'s ranks on ``work`` in a process group of their own,
+    killed past ``RUN_TIMEOUT``."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
-    proc = subprocess.Popen([sys.executable, __file__, str(work)], cwd=ROOT, env=env,
+    proc = subprocess.Popen([sys.executable, script, str(work)], cwd=ROOT, env=env,
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
                             start_new_session=True)
     try:
@@ -202,18 +204,33 @@ def test_sharded_prefill_and_decode_match_jax(case, tmp_path):
 
 @pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "phi-3-vision-4.2b",
                                   "whisper-large-v3", "xlstm-125m"])
-def test_families_not_on_a_mesh_raise(arch):
+def test_families_not_on_a_mesh_raise(arch, one_rank):
+    """No family is left off a mesh: the prefill, decode and train bundles
+    of the moe, vlm, encdec and ssm families build on the (2, 2) layout, and
+    on a one-rank gloo mesh ``init_cache`` gives every leaf its
+    ``cache_pspecs`` placements and the values of the plain cache (the
+    xlstm states their -1e30 stabilisers too)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch import sharding as SH
     from repro_torch.configs.base import ShapeConfig, get_smoke_config
+    from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.models import decoding as DEC
+    from repro_torch.models.params import tree_paths
     from repro_torch.steps import make_step
 
     cfg = get_smoke_config(arch)
-    mesh = {"data": 2, "model": 2}
-    for kind in ("prefill", "decode"):
-        with pytest.raises(NotImplementedError, match="5a-ii"):
-            make_step(cfg, mesh, ShapeConfig(kind, 32, 4, kind))
-    with pytest.raises(NotImplementedError, match="5a-ii"):
-        DEC.init_cache(cfg, 4, 32, device="cpu", mesh=mesh)
+    for kind in ("prefill", "decode", "train"):
+        bundle = make_step(cfg, {"data": 2, "model": 2}, ShapeConfig(kind, 32, 4, kind))
+        assert bundle.in_shardings is not None and bundle.out_shardings is not None
+    mesh = make_local_mesh(1, 1, device="cpu")
+    cache = DEC.init_cache(cfg, 4, 32, device="cpu", mesh=mesh)
+    plain = DEC.init_cache(cfg, 4, 32, device="cpu")
+    specs = dict(tree_paths(SH.cache_pspecs(cfg, plain, mesh)))
+    for (path, t), (wpath, w) in zip(tree_paths(cache), tree_paths(plain)):
+        assert path == wpath and isinstance(t, DTensor), path
+        assert t.placements == SH.placements(specs[path], mesh), path
+        assert t.dtype == w.dtype and torch.equal(t.full_tensor(), w), path
 
 
 @pytest.fixture
@@ -280,13 +297,16 @@ def test_make_local_mesh_needs_a_group_of_its_size(tmp_path):
         dist.destroy_process_group()
 
 
-@pytest.mark.parametrize("arch", ["gemma-2b", "hymba-1.5b"])
+@pytest.mark.parametrize("arch", ["gemma-2b", "hymba-1.5b", "granite-moe-3b-a800m",
+                                  "phi-3-vision-4.2b", "whisper-large-v3", "xlstm-125m"])
 def test_one_by_one_mesh_matches_no_mesh(arch, one_rank):
     """On a (1, 1) mesh every placement is a Shard or a Replicate over one
     rank: the bundles give the unsharded bundles' numbers and refuse plain
-    inputs, the train bundle's step too."""
+    inputs, the train bundle's step too (for the moe family: the dispatch
+    island's arithmetic is ``mesh=None``'s)."""
     from repro_torch import sharding as SH
     from repro_torch.configs.base import ShapeConfig, get_smoke_config
+    from repro_torch.data.pipeline import with_frontend_stubs
     from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.models.params import tree_map, tree_paths
     from repro_torch.optim import adamw_init
@@ -294,19 +314,22 @@ def test_one_by_one_mesh_matches_no_mesh(arch, one_rank):
 
     mesh = make_local_mesh(1, 1, device="cpu")
     cfg = get_smoke_config(arch, attention_impl="pallas")
-    pre_shape, dec_shape = ShapeConfig("p", 16, 2, "prefill"), ShapeConfig("d", 16, 2, "decode")
-    _, params = init_model(cfg, seed=1, max_seq=16, device="cpu")
+    pre_shape, dec_shape = ShapeConfig("p", 24, 2, "prefill"), ShapeConfig("d", 24, 2, "decode")
+    _, params = init_model(cfg, seed=1, max_seq=24, device="cpu")
     tokens = torch.randint(0, cfg.vocab, (2, 8), generator=torch.Generator().manual_seed(2))
     step = torch.randint(0, cfg.vocab, (2, 1), generator=torch.Generator().manual_seed(3))
-    want, wcache = make_prefill_step(cfg, None, pre_shape).fn(params, {"tokens": tokens})
+    stubs = {k: torch.from_numpy(v) for k, v in with_frontend_stubs(
+        {"tokens": tokens.numpy()}, cfg).items() if k != "tokens"}
+    prompt = {"tokens": tokens, **stubs}
+    want, wcache = make_prefill_step(cfg, None, pre_shape).fn(params, prompt)
     want_step, wcache = make_decode_step(cfg, None, dec_shape).fn(params, wcache,
                                                                   {"tokens": step})
     pre = make_prefill_step(cfg, mesh, pre_shape)
     dec = make_decode_step(cfg, mesh, dec_shape)
     with pytest.raises(ValueError, match="placed"):
-        pre.fn(params, {"tokens": tokens})
+        pre.fn(params, prompt)
     sparams = SH.distribute(params, mesh, pre.in_shardings[0])
-    got, cache = pre.fn(sparams, SH.distribute({"tokens": tokens}, mesh, pre.in_shardings[1]))
+    got, cache = pre.fn(sparams, SH.distribute(prompt, mesh, pre.in_shardings[1]))
     torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
     with pytest.raises(ValueError, match="placed"):
         dec.fn(sparams, cache, {"tokens": step})
@@ -315,10 +338,10 @@ def test_one_by_one_mesh_matches_no_mesh(arch, one_rank):
     torch.testing.assert_close(got_step, want_step, rtol=0, atol=1e-6)
     for (path, t), (_, w) in zip(tree_paths(cache), tree_paths(wcache)):
         torch.testing.assert_close(t.full_tensor(), w, rtol=0, atol=1e-6, msg=path)
-    train_shape = ShapeConfig("t", 8, 2, "train")
+    train_shape = ShapeConfig("t", 24, 2, "train")
     train_cfg = dataclasses.replace(cfg, attention_impl="xla")  # K1 has no backward
     batch = {"tokens": tokens, "targets": torch.roll(tokens, -1, 1),
-             "mask": torch.ones(2, 8)}
+             "mask": torch.ones(2, 8), **stubs}
     want_p, _, want_m = make_step(train_cfg, None, train_shape).fn(
         tree_map(torch.clone, params), adamw_init(params), batch)
     train = make_step(train_cfg, mesh, train_shape)

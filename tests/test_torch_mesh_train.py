@@ -50,6 +50,7 @@ TOL = 2e-4
 B, S = 4, 16
 OPT = dict(lr=1e-2, warmup_steps=1, total_steps=10)
 RUN_TIMEOUT = 150  # seconds for one 4-rank run, spawn to exit
+BATCH_KEYS = ("tokens", "targets", "mask")
 
 CASES = {
     "gemma-tp-2x2-zero1": ("gemma-2b", "tp", (2, 2), True),
@@ -81,15 +82,15 @@ def _state(tree, prefix, arrays):
         arrays[f"{prefix}{path}"] = t.detach().full_tensor().numpy().copy()  # not a view
 
 
-def _steps(bundle, params, opt, data, mesh, first, n, out, arrays):
-    """``n`` steps of ``bundle`` from batch ``first`` on: the metrics go to
-    ``out["metrics"]``, the state after step i (1-based) to ``arrays`` under
-    "s<i>:params", "s<i>:mu" and "s<i>:nu"."""
+def _steps(bundle, params, opt, data, mesh, first, n, out, arrays, keys=BATCH_KEYS):
+    """``n`` steps of ``bundle`` from batch ``first`` on (batch i's ``keys``
+    stored as "<key><i>"): the metrics go to ``out["metrics"]``, the state
+    after step i (1-based) to ``arrays`` under "s<i>:params", "s<i>:mu" and
+    "s<i>:nu"."""
     from repro_torch import sharding as SH
 
     for i in range(first, first + n):
-        batch = SH.distribute({k: torch.from_numpy(data[f"{k}{i}"])
-                               for k in ("tokens", "targets", "mask")},
+        batch = SH.distribute({k: torch.from_numpy(data[f"{k}{i}"]) for k in keys},
                               mesh, bundle.in_shardings[2])
         params, opt, m = bundle.fn(params, opt, batch)
         out["metrics"].append({k: float(v) for k, v in m.items()})
@@ -287,10 +288,11 @@ def _jax_side(arch, n_steps, work: Path, extra=None):
     return {"n_params": len(leaves)}, (jcfg, jp, arrays)
 
 
-def _held(jax_side, metrics, got: dict) -> None:
+def _held(jax_side, metrics, got: dict, keys=BATCH_KEYS) -> None:
     """Each of the port's steps against the reference's step from the same
     state: step 1 from the shared params, step i > 1 from the port's state
-    after step i - 1 (``got``'s "s<i-1>:" arrays)."""
+    after step i - 1 (``got``'s "s<i-1>:" arrays); batch i is its ``keys``
+    stored as "<key><i>"."""
     import jax
     import jax.numpy as jnp
 
@@ -315,7 +317,7 @@ def _held(jax_side, metrics, got: dict) -> None:
             params = tree(f"s{i}:params")
             opt = {"mu": tree(f"s{i}:mu"), "nu": tree(f"s{i}:nu"),
                    "step": jnp.asarray(i, jnp.int32)}
-        batch = {k: jnp.asarray(arrays[f"{k}{i}"]) for k in ("tokens", "targets", "mask")}
+        batch = {k: jnp.asarray(arrays[f"{k}{i}"]) for k in keys}
         new_p, new_o, m = step(params, opt, batch)
         for k in ("loss", "aux", "grad_norm", "lr"):
             want = float(m[k])
@@ -351,9 +353,11 @@ def _want_placements(arch, strategy, mesh_shape, zero1):
     return {"params": conv(p_specs), "mu": conv(o_specs["mu"]), "nu": conv(o_specs["nu"])}
 
 
-def _run_ranks(work: Path) -> dict:
+def _run_ranks(work: Path, script: str = __file__) -> dict:
+    """Run ``script``'s ranks on ``work`` (killed past ``RUN_TIMEOUT``);
+    returns rank 0's result.json."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
-    proc = subprocess.Popen([sys.executable, __file__, str(work)], cwd=ROOT, env=env,
+    proc = subprocess.Popen([sys.executable, script, str(work)], cwd=ROOT, env=env,
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
                             start_new_session=True)
     try:

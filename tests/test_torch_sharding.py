@@ -127,9 +127,22 @@ def test_train_bundle_shardings_match_jax(arch, strategy, zero1):
 
 @pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "whisper-large-v3"])
 def test_train_bundle_of_a_family_not_on_a_mesh_raises(arch):
-    with pytest.raises(NotImplementedError, match="5a-iii"):
-        TS.make_train_step(TC.get_smoke_config(arch), {"data": 2, "model": 2},
-                           TC.ShapeConfig("t", 32, 4, "train"))
+    """No family is left off a mesh: the moe and encdec train bundles'
+    shardings on (2, 2) under ``fsdp_tp`` with ZeRO-1 (the experts over
+    "model", whisper's position tables over "data") equal the reference
+    bundle's."""
+    jmesh, tmesh = _meshes("2x2")
+    shape = ("t", 32, 4, "train")
+    tb = TS.make_train_step(TC.get_smoke_config(arch), tmesh, TC.ShapeConfig(*shape),
+                            strategy="fsdp_tp")
+    jb = JS.make_train_step(JC.get_smoke_config(arch), jmesh, JC.ShapeConfig(*shape),
+                            strategy="fsdp_tp")
+    for tpart, jpart in zip(tb.in_shardings + tb.out_shardings,
+                            jb.in_shardings + jb.out_shardings):
+        if jpart is None:
+            assert tpart is None
+        else:
+            _assert_same(tpart, jpart)
 
 
 @pytest.mark.parametrize("mesh", list(MESHES))
@@ -164,20 +177,17 @@ def test_cache_pspecs_match_jax(arch, shape, seq_shard, mesh):
     _assert_same(tspecs, jspecs)
 
 
-@pytest.mark.parametrize("arch", ["gemma-2b", "hymba-1.5b", "granite-moe-3b-a800m"])
+@pytest.mark.parametrize("arch", ["gemma-2b", "hymba-1.5b", "granite-moe-3b-a800m",
+                                  "phi-3-vision-4.2b", "whisper-large-v3", "xlstm-125m"])
 def test_bundle_shardings_match_jax(arch):
     """The prefill and decode bundles' ``in_shardings`` / ``out_shardings``
     on (2, 2) equal the reference bundles' on an abstract (2, 2) mesh, for
-    the families that run on a mesh; the others raise."""
+    every family."""
     jmesh, tmesh = _meshes("2x2")
     tcfg, jcfg = TC.get_smoke_config(arch), JC.get_smoke_config(arch)
     for kind in ("prefill", "decode"):
         tshape, jshape = TC.ShapeConfig(kind, 32, 4, kind), JC.ShapeConfig(kind, 32, 4, kind)
         jb = JS.make_step(jcfg, jmesh, jshape)
-        if tcfg.family not in TDEC.MESH_FAMILIES:
-            with pytest.raises(NotImplementedError, match="5a-ii"):
-                TS.make_step(tcfg, tmesh, tshape)
-            continue
         tb = TS.make_step(tcfg, tmesh, tshape)
         for tpart, jpart in zip(tb.in_shardings + tb.out_shardings,
                                 jb.in_shardings + jb.out_shardings):
