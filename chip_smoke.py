@@ -99,7 +99,7 @@ Phases, in order; any failure exits non-zero with its traceback:
                and at phase 5b's shapes (phi-3-vision, whisper), and K2 at
                phase 5c's step (B = 2, 1024 valid slots of 1024).
 7. breakdown - profiles of the prefill (1 x 512 tokens) and the decode tick
-               of the archs in BREAKDOWN_ARCHS (gemma-2b and
+               of the archs in BREAKDOWN_ARCHS (gemma-2b, hymba-1.5b and
                granite-moe-3b-a800m) in the bf16 serve engine: the top
                six device ops and the port's kernels wherever they rank;
                for granite-moe also the device time of its MoE layers,
@@ -110,7 +110,8 @@ Phases, in order; any failure exits non-zero with its traceback:
                at full width in bf16, B=4, S=512, 4 AdamW steps without
                remat: finite losses and grad norms, every param leaf moved
                by step 1; ms/step over steps 2-4, tokens/s, peak memory and
-               the step's bound.  (b) gemma-2b
+               the step's bound; then one such step profiled, and its
+               forward, backward and AdamW update timed apart.  (b) gemma-2b
                at full width cut to 2 layers in f32, B=1, S=128, wq and wk
                rescaled so the scores are O(1): one step on the card and
                one on the CPU from the same params: loss and grad norm
@@ -234,8 +235,9 @@ Phases, in order; any failure exits non-zero with its traceback:
                stub image rows + 512 tokens, cache 1152), whisper-large-v3
                (4 + 4 layers, 1500 stub frames, 192-token prompts, cache
                448) and xlstm-125m (4 layers: three mLSTM blocks, then the
-               sLSTM), B = 8, 32 greedy steps, through the mesh bundles and
-               ``mesh=None`` on the same seed-0 params: tokens equal, logits
+               sLSTM; 128-token prompts, cache 160), B = 8, 32 greedy
+               steps, through the mesh bundles and ``mesh=None`` on the
+               same seed-0 params: tokens equal, logits
                within the bf16 tolerance, K1 n_layers and K2 32 x n_layers
                launches on both routes (every counter 0 for xlstm), the
                cache placed by the decode bundle's ``out_shardings``;
@@ -395,9 +397,11 @@ MESH_TRAIN_DP = 8  # the data axis of the (dp, 1) mesh whose bytes phase 12 comp
 # (whisper's encoder cut alike), prompt tokens, cache slots).  granite-moe
 # keeps phase 4's cut; phi-3-vision's prompt is its 576 stub image rows and
 # 512 tokens, whisper's 1500 stub frames and 192 tokens (phase 5b's shapes);
-# xlstm-125m's 4 layers are three mLSTM blocks and the sLSTM block of layer 4
+# xlstm-125m's 4 layers are three mLSTM blocks and the sLSTM block of layer 4,
+# its prompt cut to 128 tokens for the script's time (its sLSTM steps one
+# token at a time, ~6-7 ms of DTensor dispatch a token on the mesh)
 MESH_FAMILY_RUNS = [("granite-moe-3b-a800m", 4, 512, 544), ("phi-3-vision-4.2b", 4, 512, 1152),
-                    ("whisper-large-v3", 4, 192, 448), ("xlstm-125m", 4, 512, 544)]
+                    ("whisper-large-v3", 4, 192, 448), ("xlstm-125m", 4, 128, 160)]
 # granite-moe's train step on that mesh (tp, ZeRO-1, remat; MESH_TRAIN_B x
 # MESH_TRAIN_S tokens): (arch, layers, steps); and the "model" axis of the
 # (1, m) mesh whose MoE reduction bytes it computes from the specs
@@ -424,11 +428,10 @@ for bt in tbs:
                                    D.default_strategy(tarch, tshape), verbose=False)
 print("RESULT " + json.dumps(out))
 """
-# phase 7's profiled serve steps: gemma-2b and granite-moe-3b-a800m (its MoE
-# layer's parts).  hymba-1.5b's (7.8 s) and xlstm-125m's (24.0 s) profiles
-# were cut to make room for phase 13: they gate nothing, and their rows in
-# PERF.md stand from the runs that took them
-BREAKDOWN_ARCHS = ("gemma-2b", "granite-moe-3b-a800m")
+# phase 7's profiled serve steps: gemma-2b, hymba-1.5b and granite-moe-3b-a800m
+# (its MoE layer's parts).  xlstm-125m's profile (24.0 s on one H100 at 700 W)
+# was cut to make room for phase 13: it gates nothing
+BREAKDOWN_ARCHS = ("gemma-2b", "hymba-1.5b", "granite-moe-3b-a800m")
 # phase 6's repeats of the plain versions (the kernels and the library calls
 # keep device_ms's and call_ms's defaults): a plain scan call takes ~47 ms
 # of host loop, and the plain times repeated within 2% between PRs 16 and 22
@@ -2414,6 +2417,57 @@ def train_parity(arch: str, layers: int, b: int, s: int, part: str = "b") -> dic
     return {"worst": {k: v[0] for k, v in worst.items()}, "planted_faults": len(planted_faults)}
 
 
+def train_breakdown() -> dict:
+    """One full-width step of (a), profiled (device busy time against wall
+    time, the top device ops), then the step's body once more with CUDA
+    events around its forward, backward and AdamW update, and the grad
+    norm of each layer's block params."""
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.data import DataConfig, SyntheticDataset
+    from repro_torch.models.params import tree_leaves, tree_map
+    from repro_torch.models.transformer import forward_train
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+    from repro_torch.steps import init_model, make_train_step
+
+    arch, b, s, _ = TRAIN_FULL
+    cfg = get_config(arch)
+    _, params = init_model(cfg, seed=0, device="cuda")
+    opt = adamw_init(params)
+    batch = {k: torch.from_numpy(v).to("cuda") for k, v in
+             SyntheticDataset(DataConfig(cfg.vocab, s, b, seed=0)).batch(0).items()}
+    step = make_train_step(cfg, None, ShapeConfig("t", s, b, "train"), remat=False).fn
+    step(params, opt, batch)  # warm-up; the params now require grad
+    busy_ms, wall_ms, _ = _profile(f"{arch} train step (B={b} S={s})",
+                                   lambda: step(params, opt, batch))
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    ev[0].record()
+    total, _ = forward_train(params, cfg, batch, remat=False)
+    ev[1].record()
+    total.backward()
+    ev[2].record()
+    with torch.no_grad():  # each layer's grad norm, over its block leaves
+        layer_norms = torch.stack([
+            torch.linalg.vector_norm(p.grad, dim=tuple(range(1, p.grad.dim())),
+                                     dtype=torch.float32) ** 2
+            for p in tree_leaves(params["blocks"])]).sum(0).sqrt().tolist()
+        ev[3].record()
+        adamw_update(tree_map(lambda p: p.grad, params), opt, params, AdamWConfig())
+    ev[4].record()
+    torch.cuda.synchronize()
+    parts = {name: ev[i].elapsed_time(ev[i + 1])
+             for i, name in ((0, "forward"), (1, "backward"), (3, "adamw"))}
+    log("breakdown", f"{arch} train step by part (CUDA events): "
+        + ", ".join(f"{k} {v:.2f} ms" for k, v in parts.items()))
+    log("breakdown", f"{arch} grad norm of each layer's block params, layer 0 to "
+        f"{len(layer_norms) - 1} (the reference's init): "
+        + ", ".join(f"{x:.3g}" for x in layer_norms))
+    del params, opt, step, total
+    torch.cuda.empty_cache()
+    return {"busy_ms": busy_ms, "wall_ms": wall_ms, "layer_grad_norms": layer_norms, **parts}
+
+
 def train_resume() -> dict:
     """(c) crash at step 6 and resume from the step-4 checkpoint, on the card."""
     import tempfile
@@ -2452,8 +2506,8 @@ def phase_train() -> dict:
 
     t0 = time.perf_counter()
     before = ops.launches()
-    out = {"full": train_full(*TRAIN_FULL), "parity": train_parity(*TRAIN_PARITY),
-           "resume": train_resume()}
+    out = {"full": train_full(*TRAIN_FULL), "breakdown": train_breakdown(),
+           "parity": train_parity(*TRAIN_PARITY), "resume": train_resume()}
     for arch, b, s, steps, remat, scan in TRAIN_MORE:
         out[f"full {arch} {scan}"] = train_full(arch, b, s, steps, remat, scan, part="d")
     out["parity hybrid"] = train_parity(*TRAIN_PARITY_HYBRID, part="e")

@@ -63,9 +63,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, window: int = 0,
     max_len) slots when ``window`` > 0, else ``max_len``.  With a ``mesh``
     (a ``DeviceMesh``) every leaf is a DTensor of zeros placed by
     ``sharding.cache_pspecs``, each rank allocating its shard alone."""
-    if mesh is not None and cfg.family == "ssm":  # states born placed, not all zeros
-        blocks = [XL.init_mlstm_state(cfg, batch, mesh=mesh) if kind == "mlstm"
-                  else XL.init_slstm_state(cfg, batch, mesh=mesh)
+    if cfg.family == "ssm":  # on a mesh the states are born placed, not all zeros
+        blocks = [XL.init_mlstm_state(cfg, batch, device=device, mesh=mesh) if kind == "mlstm"
+                  else XL.init_slstm_state(cfg, batch, device=device, mesh=mesh)
                   for kind in xlstm_layer_kinds(cfg)]
         return {"blocks": blocks, "pos": _xlstm_pos(batch, 0, blocks[0]["m"])}
     if mesh is not None:
@@ -76,12 +76,6 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, window: int = 0,
                                               placements=SH.placements(p, mesh)),
                            spec, SH.cache_pspecs(cfg, spec, mesh))
     check_family(cfg)
-    if cfg.family == "ssm":
-        blocks = [XL.init_mlstm_state(cfg, batch, device=device) if kind == "mlstm"
-                  else XL.init_slstm_state(cfg, batch, device=device)
-                  for kind in xlstm_layer_kinds(cfg)]
-        return {"blocks": blocks, "pos": torch.zeros((batch,), dtype=torch.int32,
-                                                     device=device)}
     dt = L.adtype(cfg)
     m = min(window, max_len) if window else max_len
     shape = (cfg.n_layers, batch, m, cfg.n_kv_heads, cfg.resolved_head_dim)

@@ -19,8 +19,11 @@ cache leaf's placements (held against JAX's ``cache_pspecs`` converted),
 and the bytes reduced over the mesh (``sharding.relayout.reduced_bytes``).
 
 The cases: granite-moe-smoke (4 experts, top 2: 2 experts a rank) under
-``tp`` and ``fsdp_tp`` on (2, 2); moonshot-smoke (4 experts and a shared
-one: 1 expert a rank) under ``tp`` on (1, 4); phi-3-vision-smoke under
+``tp`` and ``fsdp_tp`` on (2, 2), and with 3 experts under ``tp`` on (2,
+2), where 3 does not divide "model": every rank runs every expert and
+the combine needs no reduction (production granite-moe's 40 experts on a
+"model" axis of 16 take this path); moonshot-smoke (4 experts and a shared one: 1
+expert a rank) under ``tp`` on (1, 4); phi-3-vision-smoke under
 ``tp`` and ``fsdp_tp`` on (2, 2); whisper-smoke under ``tp`` on (2, 2) and,
 with 2 heads, on (1, 4), where its caches (the cross K/V too) are sharded on
 head_dim and the cross-attention's scores are a partial sum reduced over
@@ -29,6 +32,7 @@ head_dim and the cross-attention's scores are a partial sum reduced over
 In this process: the MoE layer's ``"dropping"`` and ``"dense"`` routes on a
 (1, 1) gloo mesh give ``mesh=None``'s output, aux and grads.
 """
+import dataclasses
 import json
 import sys
 from pathlib import Path
@@ -43,10 +47,12 @@ from test_torch_mesh_steps import _run_ranks, one_rank  # noqa: F401  (a fixture
 TOL = 2e-4
 B, PROMPT, MAX_LEN, STEPS = 4, 16, 32, 4
 
-# (arch, strategy, mesh, config overrides on both sides)
+# (arch, strategy, mesh, config overrides on both sides, see smoke_config)
 CASES = {
     "granite-moe-tp-2x2": ("granite-moe-3b-a800m", "tp", (2, 2), {}),
     "granite-moe-fsdp_tp-2x2": ("granite-moe-3b-a800m", "fsdp_tp", (2, 2), {}),
+    "granite-moe-3experts-tp-2x2": ("granite-moe-3b-a800m", "tp", (2, 2),
+                                    {"moe": {"n_experts": 3}}),
     "moonshot-tp-1x4": ("moonshot-v1-16b-a3b", "tp", (1, 4), {}),
     "phi3v-tp-2x2": ("phi-3-vision-4.2b", "tp", (2, 2), {}),
     "phi3v-fsdp_tp-2x2": ("phi-3-vision-4.2b", "fsdp_tp", (2, 2), {}),
@@ -55,6 +61,16 @@ CASES = {
                               {"n_heads": 2, "n_kv_heads": 2}),
     "xlstm-tp-2x2": ("xlstm-125m", "tp", (2, 2), {}),
 }
+
+
+def smoke_config(get_smoke_config, arch: str, over: dict):
+    """``get_smoke_config`` (the reference's or the port's) of ``arch`` with
+    ``over``, whose "moe" entry replaces fields of the MoE config."""
+    over = dict(over)
+    moe = over.pop("moe", None)
+    cfg = get_smoke_config(arch, **over)
+    return cfg if moe is None else dataclasses.replace(cfg,
+                                                       moe=dataclasses.replace(cfg.moe, **moe))
 
 
 # ---------------------------------------------------------------------------
@@ -79,7 +95,8 @@ def _rank(rank: int, work: str) -> None:
     dist.init_process_group("gloo", init_method=f"file://{work}/rdv", rank=rank, world_size=n)
     try:
         mesh = make_local_mesh(d, m, device="cpu")
-        cfg = get_smoke_config(job["arch"], **{"attention_impl": "pallas", **job["over"]})
+        cfg = smoke_config(get_smoke_config, job["arch"],
+                           {"attention_impl": "pallas", **job["over"]})
         pre = make_prefill_step(cfg, mesh, ShapeConfig("p", MAX_LEN, B, "prefill"),
                                 job["strategy"])
         dec = make_decode_step(cfg, mesh, ShapeConfig("d", MAX_LEN, B, "decode"),
@@ -166,7 +183,7 @@ def _prompt(jcfg, rng):
 
 def _jax_side(arch, over, mesh_shape, work: Path):
     """JAX's numbers on the case's inputs, written for the ranks; returns
-    (the job, JAX's cache placements on the mesh as strings)."""
+    (the job, JAX's cache placements on the mesh as strings, the config)."""
     import jax
     import jax.numpy as jnp
     from jax.sharding import AbstractMesh
@@ -178,7 +195,7 @@ def _jax_side(arch, over, mesh_shape, work: Path):
     from repro.models import transformer as JTF
     from repro_torch import sharding as TSH
 
-    jcfg = get_smoke_config(arch, **over)
+    jcfg = smoke_config(get_smoke_config, arch, over)
     jp = _tame(JP.init_params(jax.random.PRNGKey(3), JTF.model_defs(jcfg, max_seq=MAX_LEN)),
                jcfg)
     rng = np.random.default_rng(7)
@@ -203,13 +220,13 @@ def _jax_side(arch, over, mesh_shape, work: Path):
     want = {jax.tree_util.keystr(path): [str(p) for p in TSH.placements(TSH.P(*spec), layout)]
             for path, spec in jax.tree_util.tree_leaves_with_path(
                 jspecs, is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))}
-    return {"n_params": len(leaves)}, want
+    return {"n_params": len(leaves)}, want, jcfg
 
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_family_prefill_and_decode_on_a_mesh_match_jax(case, tmp_path):
     arch, strategy, mesh_shape, over = CASES[case]
-    job, want_placements = _jax_side(arch, over, mesh_shape, tmp_path)
+    job, want_placements, jcfg = _jax_side(arch, over, mesh_shape, tmp_path)
     job.update(arch=arch, strategy=strategy, mesh=list(mesh_shape), over=over)
     (tmp_path / "job.json").write_text(json.dumps(job))
     _run_ranks(tmp_path, __file__)
@@ -220,8 +237,8 @@ def test_family_prefill_and_decode_on_a_mesh_match_jax(case, tmp_path):
     assert sorted(got["cache"]) == sorted(want_placements)
     assert max(got["cache"].values()) <= TOL, got["cache"]
     assert got["placements"] == want_placements
-    if arch.startswith(("granite-moe", "moonshot")):  # experts over "model": one reduction
-        assert got["reduced_bytes"] > 0
+    if jcfg.family == "moe" and jcfg.moe.e_pad % mesh_shape[1] == 0:  # experts over "model"
+        assert got["reduced_bytes"] > 0  # one reduction
     if over.get("n_kv_heads") == 2:  # the cross K/V on head_dim: the scores' reduction
         assert got["placements"]["['cross_k']"] == ["R", "S(4)"]
         assert got["reduced_bytes"] > 0

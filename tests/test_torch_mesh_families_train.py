@@ -26,7 +26,9 @@ The cases, 2 steps each: moonshot-smoke under ``tp`` on (2, 2) with ZeRO-1
 check_sharded_train_step``, trains it so); granite-moe-smoke under
 ``fsdp_tp`` on (2, 2); phi-3-vision-smoke under ``tp`` on (1, 4) with
 ZeRO-1; whisper-smoke under ``tp`` on (2, 2); xlstm-smoke under ``tp`` on
-(2, 2) with ZeRO-1.
+(2, 2) with ZeRO-1; granite-moe-smoke with 3 experts under ``tp`` on (2,
+2), where the experts stay whole on every rank: each rank's weight grads
+are its batch rows' share of the sum, its activation grads whole.
 """
 import json
 import sys
@@ -37,16 +39,19 @@ import pytest
 import torch
 
 import _torch_threads  # noqa: F401  (one intra-op thread per test worker)
-from test_torch_mesh_families import _tame
+from test_torch_mesh_families import _tame, smoke_config
 from test_torch_mesh_train import (B, BATCH_KEYS, OPT, S, _held, _placements, _run_ranks,
                                    _steps, _want_placements)
 
+# (arch, strategy, mesh, ZeRO-1, config overrides on both sides, see smoke_config)
 CASES = {
-    "moonshot-tp-2x2-zero1": ("moonshot-v1-16b-a3b", "tp", (2, 2), True),
-    "granite-moe-fsdp_tp-2x2": ("granite-moe-3b-a800m", "fsdp_tp", (2, 2), False),
-    "phi3v-tp-1x4-zero1": ("phi-3-vision-4.2b", "tp", (1, 4), True),
-    "whisper-tp-2x2": ("whisper-large-v3", "tp", (2, 2), False),
-    "xlstm-tp-2x2-zero1": ("xlstm-125m", "tp", (2, 2), True),
+    "moonshot-tp-2x2-zero1": ("moonshot-v1-16b-a3b", "tp", (2, 2), True, {}),
+    "granite-moe-fsdp_tp-2x2": ("granite-moe-3b-a800m", "fsdp_tp", (2, 2), False, {}),
+    "phi3v-tp-1x4-zero1": ("phi-3-vision-4.2b", "tp", (1, 4), True, {}),
+    "whisper-tp-2x2": ("whisper-large-v3", "tp", (2, 2), False, {}),
+    "xlstm-tp-2x2-zero1": ("xlstm-125m", "tp", (2, 2), True, {}),
+    "granite-moe-3experts-tp-2x2": ("granite-moe-3b-a800m", "tp", (2, 2), False,
+                                    {"moe": {"n_experts": 3}}),
 }
 STUBS = {"vlm": "img_embeds", "encdec": "enc_frames"}  # the stub frontend's input
 
@@ -74,7 +79,7 @@ def _rank(rank: int, work: str) -> None:
     dist.init_process_group("gloo", init_method=f"file://{work}/rdv", rank=rank, world_size=4)
     try:
         mesh = make_local_mesh(*job["mesh"], device="cpu")
-        cfg = get_smoke_config(job["arch"])
+        cfg = smoke_config(get_smoke_config, job["arch"], job["over"])
         bundle = make_train_step(cfg, mesh, ShapeConfig("t", S, B, "train"),
                                  AdamWConfig(**OPT), job["strategy"], zero1=job["zero1"])
         leaves = [data[f"param{i}"] for i in range(job["n_params"])]
@@ -141,8 +146,8 @@ def test_family_train_step_on_a_mesh_matches_jax(case, tmp_path):
     from repro import steps as JS
     from repro.configs.base import get_smoke_config
 
-    arch, strategy, mesh_shape, zero1 = CASES[case]
-    jcfg = get_smoke_config(arch)
+    arch, strategy, mesh_shape, zero1, over = CASES[case]
+    jcfg = smoke_config(get_smoke_config, arch, over)
     jp = _tame(JS.init_model(jcfg, seed=3, max_seq=S)[1], jcfg)
     arrays = _batches(jcfg, 2)
     keys = BATCH_KEYS + ((STUBS[jcfg.family],) if jcfg.family in STUBS else ())
@@ -151,12 +156,12 @@ def test_family_train_step_on_a_mesh_matches_jax(case, tmp_path):
              **{f"param{i}": np.asarray(leaf) for i, leaf in enumerate(leaves)})
     (tmp_path / "job.json").write_text(json.dumps(
         {"n_params": len(leaves), "arch": arch, "strategy": strategy,
-         "mesh": list(mesh_shape), "zero1": zero1, "keys": list(keys)}))
+         "mesh": list(mesh_shape), "zero1": zero1, "keys": list(keys), "over": over}))
     got = _run_ranks(tmp_path, __file__)
     assert got["refused"], "a batch of plain tensors was not refused"
     assert len(got["metrics"]) == 2
     _held((jcfg, jp, arrays), got["metrics"], dict(np.load(tmp_path / "got.npz")), keys)
-    assert got["placements"] == _want_placements(arch, strategy, mesh_shape, zero1)
+    assert got["placements"] == _want_placements(arch, strategy, mesh_shape, zero1, jcfg)
     if mesh_shape == (2, 2):  # the batch is split over "data": the grads are reduced
         assert got["reduced_bytes"] > 0
 

@@ -329,9 +329,10 @@ def _held(jax_side, metrics, got: dict, keys=BATCH_KEYS) -> None:
         _close_state({k: got[f"s{i + 1}:{k}"] for k in want}, want)
 
 
-def _want_placements(arch, strategy, mesh_shape, zero1):
+def _want_placements(arch, strategy, mesh_shape, zero1, jcfg=None):
     """The reference bundle's param and opt-state specs on an abstract mesh
-    of ``mesh_shape``, converted to the port's placements (as strings)."""
+    of ``mesh_shape``, converted to the port's placements (as strings);
+    ``jcfg`` (default: ``arch``'s smoke config) is the reference's config."""
     import jax
     from jax.sharding import AbstractMesh
 
@@ -339,7 +340,8 @@ def _want_placements(arch, strategy, mesh_shape, zero1):
     from repro.configs.base import ShapeConfig, get_smoke_config
     from repro_torch import sharding as TSH
 
-    jb = JS.make_train_step(get_smoke_config(arch), AbstractMesh(mesh_shape, ("data", "model")),
+    jb = JS.make_train_step(jcfg or get_smoke_config(arch),
+                            AbstractMesh(mesh_shape, ("data", "model")),
                             ShapeConfig("t", S, B, "train"), strategy=strategy, zero1=zero1)
     layout = dict(zip(("data", "model"), mesh_shape))
 
