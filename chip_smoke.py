@@ -428,6 +428,36 @@ for bt in tbs:
                                    D.default_strategy(tarch, tshape), verbose=False)
 print("RESULT " + json.dumps(out))
 """
+# phase 14: the dry-run on a mesh against the card.  Phase 11's gemma-2b bundle
+# (MESH_DENSE_LAYERS layers, K1/K2, B = MESH_BATCH) counted on a fake (1, 1)
+# group in a process of its own with no card, and run on phase 11's NCCL
+# mesh under the counter: a MESH_PROMPT-token prefill, and one decode step
+# on a cache of MESH_DRYRUN_SLOTS slots.  The same process counts
+# MESH_DRYRUN_CELL at full width on 16 x 16 and 2 x 16 x 16 (logged only)
+MESH_DRYRUN_SLOTS = 1024
+MESH_DRYRUN_CELL = ("gemma-2b", "decode_32k")
+MESH_DRYRUN_SCRIPT = r"""
+import dataclasses, json, sys, time
+from repro_torch.configs.base import ShapeConfig, get_config
+from repro_torch.launch import dryrun as D
+from repro_torch.launch.mesh import make_local_mesh
+(arch, layers, b, prompt, slots), (carch, cshape) = json.loads(sys.argv[1])
+cfg = dataclasses.replace(get_config(arch, attention_impl="pallas"), n_layers=layers)
+out = {}
+with D.fake_world(1):
+    mesh = make_local_mesh(1, 1, device="cpu")
+    for kind, seq in (("prefill", prompt), ("decode", slots)):
+        t0 = time.time()
+        c = D.count_cell(cfg, ShapeConfig(kind, seq, b, kind), mesh)
+        out[kind] = {"flops": c.flops, "bytes": c.total_bytes, "peak": c.peak,
+                     "input_bytes": c.input_bytes, "kernel_calls": c.kernel_calls,
+                     "collectives": c.collectives(), "count_s": time.time() - t0}
+for multi in (False, True):
+    r = D.run_cell(carch, cshape, multi_pod=multi, verbose=False)
+    out[r["mesh"]] = {k: r[k] for k in ("memory", "hbm_fit", "collectives", "count_s",
+                                        "flops_per_dev", "n_chips", "accounting")}
+print("RESULT " + json.dumps(out))
+"""
 # phase 7's profiled serve steps: gemma-2b, hymba-1.5b and granite-moe-3b-a800m
 # (its MoE layer's parts).  xlstm-125m's profile (24.0 s on one H100 at 700 W)
 # was cut to make room for phase 13: it gates nothing
@@ -2792,6 +2822,18 @@ def start_dryrun():
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
 
 
+def start_mesh_dryrun():
+    """The dry-run on a mesh of phase 14 (MESH_DRYRUN_SCRIPT), in a process of
+    its own that sees no card; ``phase_mesh_dryrun`` waits for it."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="")
+    job = [["gemma-2b", MESH_DENSE_LAYERS, MESH_BATCH, MESH_PROMPT, MESH_DRYRUN_SLOTS],
+           list(MESH_DRYRUN_CELL)]
+    return subprocess.Popen([sys.executable, "-c", MESH_DRYRUN_SCRIPT, json.dumps(job)],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+
+
 def _cell_cfgs():
     """(blockwise cfg, K1 cfg, shape) of phase 10's hymba cell: the
     reference's perf override, and the same with attention_impl="pallas";
@@ -3757,6 +3799,121 @@ def phase_mesh_families(mesh) -> dict:
     return out
 
 
+def _coll_line(coll: dict) -> str:
+    return ", ".join(f"{k} {n} x ({coll['operand_bytes'][k] / 2**20:.2f} MiB operand, "
+                     f"{coll['wire_bytes'][k] / 2**20:.2f} MiB wire)"
+                     for k, n in sorted(coll["counts"].items())) or "none"
+
+
+def phase_mesh_dryrun(mesh, dryrun: "_Dryrun", mesh_out: dict) -> dict:
+    """Phase 14: phase 11's gemma-2b bundle (MESH_DENSE_LAYERS layers, K1/K2)
+    on the (1, 1) NCCL mesh under ``StepCost(device="cuda")`` against the
+    dry-run's count of it on a fake (1, 1) group (``start_mesh_dryrun``):
+    a MESH_PROMPT-token prefill, then one decode step on a cache of
+    MESH_DRYRUN_SLOTS slots, each after ``reset_peak_memory_stats``.  FLOPs,
+    bytes, kernel calls and collectives equal the fake count; the peak
+    within PEAK_REL_TOL of ``max_memory_allocated``; K1 and K2 launches
+    those of phase 11's prefill and of one of its steps.  Then the
+    process's full-width counts of MESH_DRYRUN_CELL on 16 x 16 and 2 x 16 x
+    16 (per-device peak, hbm_fit, collectives, count time), logged only."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import sharding as SH
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch.analysis import StepCost
+    from repro_torch.models import decoding as DEC
+    from repro_torch.steps import init_model, make_decode_step, make_prefill_step
+
+    rec = dryrun.result()
+    cfg = dataclasses.replace(get_config("gemma-2b", attention_impl="pallas"),
+                              n_layers=MESH_DENSE_LAYERS)
+    b, slots = MESH_BATCH, MESH_DRYRUN_SLOTS
+    pre = make_prefill_step(cfg, mesh, ShapeConfig("prefill", MESH_PROMPT, b, "prefill"))
+    dec = make_decode_step(cfg, mesh, ShapeConfig("decode", slots, b, "decode"))
+    phase11 = mesh_out["gemma-2b"]["launches"]
+    want = {"prefill": dict(dict.fromkeys(ops.KERNELS, 0),
+                            flash_attention=phase11["flash_attention"]),
+            "decode": dict(dict.fromkeys(ops.KERNELS, 0),
+                           decode_attention=phase11["decode_attention"] // DECODE_STEPS)}
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    _, params = init_model(cfg, seed=0, max_seq=slots, device="cuda")
+    params = SH.distribute(params, mesh, pre.in_shardings[0])
+    g = torch.Generator(device="cuda").manual_seed(14)
+
+    def tokens(s):
+        return torch.randint(1, cfg.vocab, (b, s), generator=g, device="cuda",
+                             dtype=torch.int32)
+
+    def prefill_inputs():
+        return {"params": params,
+                "batch": SH.distribute({"tokens": tokens(MESH_PROMPT)}, mesh,
+                                       pre.in_shardings[1])}
+
+    def decode_inputs():
+        return {"params": params,
+                "cache": DEC.init_cache(cfg, b, slots, device="cuda", mesh=mesh),
+                "batch": SH.distribute({"tokens": tokens(1)}, mesh, dec.in_shardings[2])}
+
+    out = {}
+    for kind, bundle, make in (("prefill", pre, prefill_inputs), ("decode", dec, decode_inputs)):
+        fake, inputs = rec[kind], make()
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with StepCost(inputs, device="cuda") as cost:
+            res = bundle.fn(**inputs)
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated() - base
+        logits = res[0]
+        if not bool(torch.isfinite(logits).all()) or tuple(logits.shape)[0] != b:
+            raise AssertionError(f"mesh-dryrun {kind}: logits {tuple(logits.shape)}, finite "
+                                 f"{bool(torch.isfinite(logits).all())}")
+        del res, logits, inputs
+        card = {"flops": cost.flops, "bytes": cost.total_bytes,
+                "input_bytes": cost.input_bytes, "kernel_calls": cost.kernel_calls,
+                "collectives": cost.collectives()}
+        for key, got in card.items():
+            if got != fake[key]:
+                raise AssertionError(f"mesh-dryrun {kind}: {key} on the card {got} != the fake "
+                                     f"(1, 1) count's {fake[key]}")
+        if ops.launches() != want[kind]:
+            raise AssertionError(f"mesh-dryrun {kind}: launches {ops.launches()}, want "
+                                 f"{want[kind]} (phase 11's)")
+        rel = _peak_check(f"mesh-dryrun {kind}", fake["peak"], peak)
+        out[kind] = {"peak_predicted": fake["peak"], "peak_measured": peak, "peak_rel": rel,
+                     "flops": cost.flops, "bytes": cost.total_bytes, "wall_ms": wall_ms,
+                     "launches": ops.launches(), "count_s": fake["count_s"]}
+        log("mesh-dryrun", f"gemma-2b {MESH_DENSE_LAYERS} layers bf16 B={b} {kind} "
+            f"({MESH_PROMPT if kind == 'prefill' else slots} "
+            f"{'tokens' if kind == 'prefill' else 'cache slots, one step'}) on the (1, 1) NCCL "
+            f"mesh: FLOPs {cost.flops:.6e}, bytes {cost.total_bytes:.6e}, inputs "
+            f"{cost.input_bytes / 2**30:.3f} GiB, kernel calls {cost.kernel_calls}, "
+            f"collectives {_coll_line(card['collectives'])}: equal to the fake (1, 1) count "
+            f"(counted in {fake['count_s']:.2f} s on the CPU); peak {fake['peak'] / 2**30:.3f} "
+            f"GiB predicted vs max_memory_allocated {peak / 2**30:.3f} GiB ({rel:+.2%}, tol "
+            f"{PEAK_REL_TOL:.0%}); launches {ops.launches()} as phase 11's; {wall_ms:.2f} ms "
+            f"under the counter")
+    del params
+    torch.cuda.empty_cache()
+    for name in ("16x16", "2x16x16"):
+        r = rec[name]
+        log("mesh-dryrun", f"{MESH_DRYRUN_CELL[0]} {MESH_DRYRUN_CELL[1]} at full width on "
+            f"{name} ({r['n_chips']} devices, counted on {r['accounting']['counted_on']}), "
+            f"CPU count on meta: per-device peak "
+            f"{r['memory']['peak_bytes_per_device'] / 2**30:.3f} GiB, hbm_fit {r['hbm_fit']}, "
+            f"FLOPs/dev {r['flops_per_dev']:.4e}, collectives {_coll_line(r['collectives'])}; "
+            f"counted in {r['count_s']:.2f} s")
+        out[name] = r
+    return out
+
+
 def _bound(flops: float, nbytes: float, peak: float, exp_rate: float, exps: float = 0) -> dict:
     """The roofline bound of a kernel call in ms: the larger of its bytes
     over the card's memory rate and its operations over their peak, FLOPs at
@@ -3771,14 +3928,16 @@ def _bound(flops: float, nbytes: float, peak: float, exp_rate: float, exps: floa
 def main() -> int:
     t_start = time.perf_counter()
     smi = phase_device()
-    phase_build()
-    dryrun = start_dryrun()
+    procs = [start_mesh_dryrun()]  # on the CPU beside the build
     try:
-        return _phases(t_start, smi, dryrun)
+        phase_build()
+        procs.append(start_dryrun())
+        return _phases(t_start, smi, procs[1], procs[0])
     finally:
-        if dryrun.poll() is None:
-            dryrun.kill()
-            dryrun.communicate()
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
 
 
 class _Dryrun:
@@ -3797,7 +3956,7 @@ class _Dryrun:
         return self.records
 
 
-def _phases(t_start: float, smi: str, proc) -> int:
+def _phases(t_start: float, smi: str, proc, mesh_proc) -> int:
     import torch
 
     fresh = phase_fresh()
@@ -3837,7 +3996,7 @@ def _phases(t_start: float, smi: str, proc) -> int:
     log("cells", f"phase took {time.perf_counter() - t0:.1f}s")
     with mesh_group() as mesh:
         t0 = time.perf_counter()
-        phase_mesh(mesh)
+        mesh_out = phase_mesh(mesh)
         log("mesh", f"phase took {time.perf_counter() - t0:.1f}s")
         t0 = time.perf_counter()
         phase_mesh_train(mesh)
@@ -3845,6 +4004,9 @@ def _phases(t_start: float, smi: str, proc) -> int:
         t0 = time.perf_counter()
         phase_mesh_families(mesh)
         log("mesh-families", f"phase took {time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
+        phase_mesh_dryrun(mesh, _Dryrun(mesh_proc), mesh_out)
+        log("mesh-dryrun", f"phase took {time.perf_counter() - t0:.1f}s")
     log("done", f"all phases passed in {time.perf_counter() - t_start:.1f}s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -69,11 +69,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, window: int = 0,
                   for kind in xlstm_layer_kinds(cfg)]
         return {"blocks": blocks, "pos": _xlstm_pos(batch, 0, blocks[0]["m"])}
     if mesh is not None:
-        from torch.distributed.tensor import zeros
-
         spec = cache_specs(cfg, batch, max_len, window)
-        return SH.tree_map(lambda t, p: zeros(t.shape, dtype=t.dtype, device_mesh=mesh,
-                                              placements=SH.placements(p, mesh)),
+        return SH.tree_map(lambda t, p: SH.filled(t.shape, 0, t.dtype, device, mesh,
+                                                  SH.placements(p, mesh)),
                            spec, SH.cache_pspecs(cfg, spec, mesh))
     check_family(cfg)
     dt = L.adtype(cfg)

@@ -155,6 +155,20 @@ def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.einsum("bsd,dhk->bshk", x, w)
 
 
+def _out_project(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """The output projection of the attention's (B,S,H,D) ``out``.  On a
+    mesh, an ``out`` sharded on head_dim (V stored so) or on heads that do
+    not divide their mesh dim is first gathered there: the einsum merges (H,
+    D), and DTensor has no placement for such a merge (torch 2.11 refuses
+    the first on a 16 x 16 mesh, 2.13 the second)."""
+    if isinstance(out, DTensor):
+        mesh = out.device_mesh
+        out = SH.relayout(out, [
+            Replicate() if p == Shard(3) or (p == Shard(2) and out.shape[2] % mesh.size(i))
+            else p for i, p in enumerate(out.placements)])
+    return torch.einsum("bshk,hkd->bsd", out, wo)
+
+
 def cross_attention_defs(cfg) -> Params:
     return attention_defs(cfg)
 
@@ -358,7 +372,7 @@ def attn_forward(p: Params, x: torch.Tensor, positions: torch.Tensor, cfg,
             if window > 0:
                 mask = mask & (ik > iq - window)
         out = _plain_attention(q, k, v, mask, cfg)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"]), (k, v)
+    return _out_project(out, p["wo"]), (k, v)
 
 
 def attn_decode(p: Params, x: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
@@ -382,7 +396,7 @@ def attn_decode(p: Params, x: torch.Tensor, cache_k: torch.Tensor, cache_v: torc
     q = _project(x, p["wq"])
     if cross:
         out = _plain_attention(q, cache_k, cache_v, None, cfg)
-        return torch.einsum("bshk,hkd->bsd", out, p["wo"]), (cache_k, cache_v)
+        return _out_project(out, p["wo"]), (cache_k, cache_v)
     m = cache_k.shape[1]
     q = apply_rope(q, pos[:, None], cfg.rope_theta)
     k_new = apply_rope(_project(x, p["wk"]), pos[:, None], cfg.rope_theta)
@@ -401,7 +415,7 @@ def attn_decode(p: Params, x: torch.Tensor, cache_k: torch.Tensor, cache_v: torc
         ar = SH.replicate_like(torch.arange(m, device=x.device), valid)
         mask = ar[None, :] < valid[:, None]  # (B,M)
         out = _plain_attention(q, cache_k, cache_v, mask[:, None, None, None, :], cfg)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"]), (cache_k, cache_v)
+    return _out_project(out, p["wo"]), (cache_k, cache_v)
 
 
 # ---------------------------------------------------------------------------

@@ -260,7 +260,14 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor, mask: torch.Tenso
                                       for pl in logits.placements])
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    gold = torch.gather(logits, -1, targets.long()[..., None])
+    if isinstance(gold, DTensor):
+        # DTensor may gather from vocab shards (a masked partial sum); reduce
+        # it here, while its mask still has the gather's shape: selecting
+        # [..., 0] first leaves the mask behind (torch 2.13, a 16 x 16 mesh)
+        gold = SH.relayout(gold, [Replicate() if pl.is_partial() else pl
+                                  for pl in gold.placements])
+    gold = gold[..., 0]
     nll = (lse - gold) * mask
     return nll.sum() / torch.clamp(mask.sum(), min=1.0)
 

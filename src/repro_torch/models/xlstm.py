@@ -107,7 +107,9 @@ def mlstm_forward(p: Params, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, State]
     scores = torch.einsum("bihk,bjhk->bijh", q.float(), k.float())
     w = scores * dprime
     norm = torch.maximum(w.sum(dim=2).abs(), torch.exp(-m[:, :, 0]))  # (B,S,H)
-    y = torch.einsum("bijh,bjhk->bihk", w, v.float()) / norm[..., None]
+    # contiguous operands: on a 16 x 16 mesh DTensor hands the einsum's view a
+    # re-placed local shard whose strides it cannot view (torch 2.13)
+    y = torch.einsum("bijh,bjhk->bihk", w.contiguous(), v.float().contiguous()) / norm[..., None]
     y = (y.to(x.dtype) * F.silu(z).reshape(b, s, h, dh)).reshape(b, s, h * dh)
     state = _mlstm_state_from_seq(k, v, ig, fg, conv_state)
     return y @ p["w_down"], state
@@ -153,10 +155,8 @@ def _state_leaf(shape, value: float, dtype: torch.dtype, device, mesh) -> torch.
     ``sharding.cache_pspecs`` places its leaf, each rank making its shard."""
     if mesh is None:
         return torch.full(shape, value, dtype=dtype, device=device)
-    from torch.distributed.tensor import full
-
-    return full(shape, value, dtype=dtype, device_mesh=mesh,
-                placements=SH.placements(SH._auto_state_spec(shape, mesh), mesh))
+    return SH.filled(shape, value, dtype, device, mesh,
+                     SH.placements(SH._auto_state_spec(shape, mesh), mesh))
 
 
 def init_mlstm_state(cfg, batch: int, device="cuda", mesh=None) -> State:

@@ -289,16 +289,29 @@ def replicate_like(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 
 
 
+def filled(shape: Sequence[int], value: float, dtype: torch.dtype, device, mesh,
+           pl: Sequence[Placement]) -> DTensor:
+    """A DTensor of ``shape`` filled with ``value`` on ``mesh``, placed by
+    ``pl``, each rank making its own shard on ``device`` (DTensor's factories
+    make it on the mesh's device type, which the dry-run's ``meta`` shards
+    are not)."""
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    shape, pl = torch.Size(shape), tuple(pl)
+    local, _ = compute_local_shape_and_global_offset(shape, mesh, pl)
+    t = torch.full(local, value, dtype=dtype, device=device)
+    stride = tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))  # contiguous
+    return DTensor.from_local(t, mesh, pl, run_check=False, shape=shape, stride=stride)
+
+
 def zeros_beside(like: torch.Tensor, shape: Sequence[int], dim: int) -> torch.Tensor:
     """Zeros of ``shape`` in ``like``'s dtype, to concatenate to ``like``
     along ``dim``: a DTensor with ``like``'s placements (``dim`` unsharded)
     when ``like`` is one, each rank allocating its shard."""
     if not isinstance(like, DTensor):
         return torch.zeros(shape, dtype=like.dtype, device=like.device)
-    from torch.distributed.tensor import zeros
-
     pl = [Replicate() if p == Shard(dim) else p for p in like.placements]
-    return zeros(tuple(shape), dtype=like.dtype, device_mesh=like.device_mesh, placements=pl)
+    return filled(shape, 0, like.dtype, like.device, like.device_mesh, pl)
 
 
 def relayout(t: DTensor, pl: Sequence[Placement]) -> DTensor:

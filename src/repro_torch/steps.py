@@ -20,9 +20,10 @@ placement, returns the logits as a full tensor and the cache with
 optimizer state placed by ``in_shardings`` (the moments by
 ``optim.adamw.opt_pspecs``, ZeRO-1 by default) and the batch over the
 data-parallel axes, and returns them placed by ``out_shardings``, with its
-0-d metrics as full tensors.  Every family runs on a mesh; the production
-mesh and the dry-run on a mesh wait for ROADMAP.md Queue 1 item 5a-iv, and
-the expert-parallel MoE routes for item 5b.
+0-d metrics as full tensors.  Every family runs on a mesh, the production
+mesh (``launch/mesh.py::make_production_mesh``) included, where the dry-run
+counts a step as one rank of a fake group sees it (``launch/dryrun.py``);
+the expert-parallel MoE routes wait for ROADMAP.md Queue 1 item 5b.
 """
 from __future__ import annotations
 

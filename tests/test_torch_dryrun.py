@@ -3,8 +3,9 @@ for every cell of the (arch x shape) matrix, ``batch_specs``, ``cache_specs``
 (with the window rule of ``make_decode_step``) and ``model_flops``; for
 every arch, ``abstract_params``; the bundles' steps at smoke size against
 the reference bundles' ``fn`` (called without ``jit`` on a 1 x 1 mesh);
-``run_cell`` on the cells of ``tests/test_dryrun_smoke.py`` and on
-nemotron-4-340b ``train_4k``, in a subprocess; the step counter's FLOPs
+the one-device record (``account(..., mesh=None)``) of the cells of
+``tests/test_dryrun_smoke.py`` and of nemotron-4-340b ``train_4k``, in a
+subprocess; the step counter's FLOPs
 against counts of the matmuls written here, its peak on ``meta`` against a
 real CPU run, and the kernel wrappers on ``meta``.
 
@@ -382,17 +383,19 @@ def test_granite_train_cell_under_perf_fails_naming_item_5(monkeypatch, capsys, 
     assert os.listdir(tmp_path) == []
 
 
-# -- run_cell, in a subprocess ----------------------------------------------------------------
+# -- the one-device record, in a subprocess --------------------------------------------------
 
 SCRIPT = r"""
 import json, resource, sys
 import torch
-from repro_torch.launch.dryrun import run_cell
+from repro_torch.configs.base import SHAPES, get_config
+from repro_torch.launch.dryrun import account, default_strategy
 out = {}
 for arch, shape in [("gemma-2b", "train_4k"), ("granite-3-8b", "decode_32k"),
                     ("phi3-mini-3.8b", "train_4k"), ("xlstm-125m", "long_500k"),
                     ("nemotron-4-340b", "train_4k")]:
-    out[f"{arch} {shape}"] = run_cell(arch, shape, verbose=False)
+    out[f"{arch} {shape}"] = account(arch, get_config(arch), SHAPES[shape],
+                                     default_strategy(arch, shape), verbose=False, mesh=None)
 out["maxrss_kib"] = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
 out["cuda_initialized"] = torch.cuda.is_initialized()
 print("RESULT " + json.dumps(out))
