@@ -254,6 +254,20 @@ Phases, in order; any failure exits non-zero with its traceback:
                8, phi-3-vision (32/32, D = 96) at 2, 4 and whisper's
                decoder (20/20, D = 64) at 2, 4, 5, each at (a)'s prompt
                and cache, the ranks together equal to the plain version.
+14. mesh-dryrun - the dry-run on a mesh against the card: phase 11's
+               gemma-2b bundle (MESH_DENSE_LAYERS layers, K1/K2, bf16, B =
+               MESH_BATCH) counted on ``meta`` as rank 0 of a fake (1, 1)
+               group in a process of its own that sees no card (started
+               beside the build), and run on phase 11's NCCL mesh under
+               ``StepCost(device="cuda")``: a MESH_PROMPT-token prefill
+               and one decode step on MESH_DRYRUN_SLOTS slots, each after
+               ``reset_peak_memory_stats``.  FLOPs, bytes, input bytes,
+               kernel calls and collectives equal the fake count; the peak
+               within PEAK_REL_TOL of ``max_memory_allocated``; K1 and K2
+               launches those of phase 11's prefill and of one of its
+               steps.  The same process counts MESH_DRYRUN_CELL at full
+               width on 16 x 16 and 2 x 16 x 16: per-device peak, hbm_fit,
+               collectives by kind and count time, logged.
 
 The last three lines are the card's name and power limit, one JSON object
 with the per-kernel numbers, and ``{"ok": true, "device": {...}}``.
@@ -3334,7 +3348,7 @@ def _hold_local_heads(what: str, hq: int, hkv: int, d: int, model: int,
 @contextlib.contextmanager
 def mesh_group():
     """A one-rank NCCL process group and its (1, 1) mesh, shared by phases
-    11-13, destroyed on the way out."""
+    11-14, destroyed on the way out."""
     import torch
     import torch.distributed as dist
 

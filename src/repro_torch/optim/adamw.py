@@ -94,13 +94,11 @@ def adamw_init(params: Any, specs: Any = None) -> Dict[str, Any]:
     tree) where given; the counter is replicated on the params' mesh."""
     first = tree_leaves(params)[0]
     if isinstance(first, DTensor):
-        from torch.distributed.tensor import zeros as dzeros
-
         mesh = first.device_mesh
 
         def moment(x, spec=None) -> DTensor:
             pl = x.placements if spec is None else SH.placements(spec, mesh)
-            return dzeros(tuple(x.shape), dtype=torch.float32, device_mesh=mesh, placements=pl)
+            return SH.filled(x.shape, 0, torch.float32, x.device, mesh, pl)
 
         def moments(key: str) -> Any:
             return SH.tree_map(moment, params, *([] if specs is None else [specs[key]]))

@@ -36,7 +36,7 @@ import _torch_threads  # noqa: F401  (one intra-op thread per test worker)
 
 ROOT = Path(__file__).resolve().parents[1]
 B, S = 4, 24
-RUN_TIMEOUT = 150  # seconds for one 4-rank run, spawn to exit
+RUN_TIMEOUT = 300  # seconds for one 4-rank run of 9 steps, spawn to exit (~40-60 s alone)
 ARCHS = ("gemma-2b", "hymba-1.5b", "granite-moe-3b-a800m")
 KINDS = ("prefill", "decode", "train")
 MESHES = ((2, 2), (1, 4))
