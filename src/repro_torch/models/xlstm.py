@@ -26,7 +26,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch import sharding as SH
 from repro_torch.models.layers import adtype, apply_norm, norm_defs
@@ -69,6 +69,20 @@ def mlstm_defs(cfg) -> Params:
     }
 
 
+def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (B,S,dp) @ w (dp,H,dh) -> (B,S,H,dh), the einsum "bsd,dhk->bshk".
+    On a mesh the product's last dim is first gathered where it is sharded
+    over more ranks than H divides: the split into (H, dh) has no DTensor
+    placement there (4 heads on a "model" axis of 16)."""
+    dp, h, dh = w.shape
+    y = x @ w.reshape(dp, h * dh)
+    if isinstance(y, DTensor):
+        mesh = y.device_mesh
+        y = SH.relayout(y, [Replicate() if p == Shard(2) and h % mesh.size(i) else p
+                            for i, p in enumerate(y.placements)])
+    return y.reshape(*y.shape[:2], h, dh)
+
+
 def _mlstm_qkvgates(p: Params, x: torch.Tensor, cfg, conv_state: Optional[torch.Tensor] = None):
     """(q, k, v (B,S,H,dh), ig, fg (B,S,H) f32 log-space gates, z (B,S,dp),
     conv state).  q and k come from silu(conv(u)), v from u itself; k is
@@ -79,11 +93,11 @@ def _mlstm_qkvgates(p: Params, x: torch.Tensor, cfg, conv_state: Optional[torch.
     z = xn @ p["w_gate"]
     c, conv_state = _causal_conv(u, p["conv_w"], p["conv_b"], conv_state)
     c = F.silu(c)
-    q = torch.einsum("bsd,dhk->bshk", c, p["w_q"])
+    q = _heads(c, p["w_q"])
     scale = SH.replicate_like(torch.full((), math.sqrt(q.shape[-1]), dtype=torch.float32,
                                          device=c.device), c)
-    k = torch.einsum("bsd,dhk->bshk", c, p["w_k"]) / scale.to(c.dtype)
-    v = torch.einsum("bsd,dhk->bshk", u, p["w_v"])
+    k = _heads(c, p["w_k"]) / scale.to(c.dtype)
+    v = _heads(u, p["w_v"])
     ig = xn.float() @ p["w_i"] + p["b_i"]
     fg = xn.float() @ p["w_f"] + p["b_f"]
     return q, k, v, ig, fg, z, conv_state
