@@ -268,6 +268,24 @@ Phases, in order; any failure exits non-zero with its traceback:
                steps.  The same process counts MESH_DRYRUN_CELL at full
                width on 16 x 16 and 2 x 16 x 16: per-device peak, hbm_fit,
                collectives by kind and count time, logged.
+15. mesh-ep - expert parallelism on phase 11's (1, 1) NCCL mesh, granite-
+               moe-3b-a800m at full width.  (a) f32 at PARITY_DEPTH layers,
+               B = MESH_BATCH, a 512-token prefill and EP_PARITY_STEPS
+               steps fed the dropping run's tokens, under "dropping",
+               ``ep_gather`` and ``ep_shard_map``: logits within
+               PARITY_REL_TOL of dropping's, launches equal; one train
+               step's loss under ``ep_gather`` within PARITY_REL_TOL of
+               dropping's.  (b) phase 13's bf16 run (4 layers, 32 steps)
+               under both routes, fed phase 13's dropping tokens: logits
+               within CHAOS_FACTOR x the drift of a dropping run whose
+               input is nudged one f32 step (``_nudged``), K1 4 and K2 128
+               as dropping's; greedy-token agreement, prefill and step ms
+               logged.  (c) phase 13's 2-layer bf16 train step under
+               ``ep_gather``: step 1's loss and aux within the bf16
+               tolerance of dropping's; ms a step.  (d) ``pipeline_apply``
+               (one stage) against the sequential loop, and
+               ``compressed_mean`` equal to its definition, on CUDA tensors
+               over the one-rank NCCL group (int8 on the wire).
 
 The last three lines are the card's name and power limit, one JSON object
 with the per-kernel numbers, and ``{"ok": true, "device": {...}}``.
@@ -425,6 +443,17 @@ MESH_MOE_MODEL = 8
 # its MESH_FAMILY_RUNS prompt (S) and cache
 MESH_FAMILY_HEADS = [("granite-moe-3b-a800m", (2, 4, 8)), ("phi-3-vision-4.2b", (2, 4)),
                      ("whisper-large-v3", (2, 4, 5))]
+# phase 15: expert parallelism on phase 11's (1, 1) mesh.  (a) f32 at
+# PARITY_DEPTH layers (EP_PARITY_STEPS decode steps fed the dropping run's
+# tokens; one train step on MESH_TRAIN_B x MESH_TRAIN_S tokens), (b) phase
+# 13's bf16 run of EP_ARCH under each route, fed phase 13's tokens, (c) phase
+# 13's train step under ep_gather
+EP_ARCH = "granite-moe-3b-a800m"
+EP_ROUTES = ("ep_gather", "ep_shard_map")
+EP_PARITY_STEPS = 4
+# the pipeline's and the compressed mean's collectives on the one-rank group
+EP_PIPE = dict(d=1536, layers=4, b=8, n_micro=4)
+EP_COMP_NUMEL = 1536 * 512 + 3  # a grad-sized tensor, padded to no multiple
 # the dry-run's accounting of phase 10's cells, run in a process of its own
 # (on meta: no card) while the card works through phases 3-9
 DRYRUN_SCRIPT = r"""
@@ -3244,15 +3273,16 @@ def _placed(params) -> bool:
 
 
 def _mesh_run(arch: str, cfg, mesh, params, batch: dict, steps: int,
-              m_len: int | None = None) -> dict:
+              m_len: int | None = None, feed=None) -> dict:
     """One prefill of ``batch`` (the tokens and the stub frontend's
     embeddings) and ``steps`` greedy decode steps through the bundles on
     ``mesh`` (None: one device) with a cache of ``m_len`` slots (default:
     prompt + steps), the launch counters set to 0 just before and read just
-    after, the peak memory from just before.  On a mesh, plain ``params``
-    are placed by the prefill bundle's specs; DTensor ones must be placed so
-    already; the cache must come out placed by the decode bundle's
-    ``out_shardings``."""
+    after, the peak memory from just before.  ``feed`` (B, steps), if given,
+    is the tokens fed to the steps in place of the greedy ones (another
+    run's "fed").  On a mesh, plain ``params`` are placed by the prefill
+    bundle's specs; DTensor ones must be placed so already; the cache must
+    come out placed by the decode bundle's ``out_shardings``."""
     import torch
 
     from repro_torch import sharding as SH
@@ -3283,9 +3313,12 @@ def _mesh_run(arch: str, cfg, mesh, params, batch: dict, steps: int,
     prefill_ms = (time.perf_counter() - t0) * 1e3
     prefill_gathered = SH.relayout.gathered_bytes
     SH.relayout.gathered_bytes = 0
-    all_logits, toks = [logits], []
+    all_logits, toks, fed = [logits], [], []
     t0 = time.perf_counter()
-    for _ in range(steps):
+    for i in range(steps):
+        if feed is not None:
+            nxt = feed[:, i:i + 1]
+        fed.append(nxt)
         logits, cache = dec.fn(params, cache, place({"tokens": nxt}, dec_spec))
         nxt = logits.argmax(-1)
         all_logits.append(logits)
@@ -3296,7 +3329,8 @@ def _mesh_run(arch: str, cfg, mesh, params, batch: dict, steps: int,
     if mesh is not None:
         SH.check_placed(cache, mesh, dec.out_shardings[1], f"mesh {arch} cache")
     return {"logits": torch.stack([lg.float() for lg in all_logits]),
-            "tokens": torch.cat(toks, dim=1), "launches": launches, "prefill_ms": prefill_ms,
+            "tokens": torch.cat(toks, dim=1), "fed": torch.cat(fed, dim=1),
+            "launches": launches, "prefill_ms": prefill_ms,
             "step_ms": step_ms, "gathered_per_step": SH.relayout.gathered_bytes / steps,
             "prefill_gathered": prefill_gathered, "peak": torch.cuda.max_memory_allocated()}
 
@@ -3769,7 +3803,9 @@ def phase_mesh_families(mesh) -> dict:
             f"(x{sharded['step_ms'] / plain['step_ms']:.2f}); peak "
             f"{sharded['peak'] / 2**30:.2f} vs {plain['peak'] / 2**30:.2f} GiB; "
             f"{time.perf_counter() - t0:.1f}s with init")
-        out[arch] = {k: v for k, v in sharded.items() if k not in ("logits", "tokens")}
+        keep = ("logits", "fed") if arch == EP_ARCH else ()  # phase 15's yardstick
+        out[arch] = {k: v for k, v in sharded.items() if k not in ("logits", "tokens", "fed")
+                     or k in keep}
         out[arch]["plain"] = {k: plain[k] for k in ("prefill_ms", "step_ms", "peak")}
         del params, plain, sharded, batch
         torch.cuda.empty_cache()
@@ -3796,7 +3832,7 @@ def phase_mesh_families(mesh) -> dict:
         f"into the MoE's reduction over \"model\" a forward (from the specs; remat's "
         f"recompute repeats it); {time.perf_counter() - t0:.1f}s with init")
     out["train"] = {"ms": run["ms"], "plain_ms": plain["ms"], "peak": run["peak"],
-                    "moe_reduce_bytes": moe_bytes}
+                    "moe_reduce_bytes": moe_bytes, "metrics": run["metrics"]}
     del run
     torch.cuda.empty_cache()
 
@@ -3810,6 +3846,179 @@ def phase_mesh_families(mesh) -> dict:
             _hold_local_heads(f"{arch} at model={model}", cfg.n_heads, cfg.n_kv_heads,
                               cfg.resolved_head_dim, model, s, m_len, "mesh-families")
     log("mesh-families", f"local heads took {time.perf_counter() - t0:.1f}s")
+    return out
+
+
+def _ep_cfg(cfg, route: str):
+    import dataclasses
+
+    return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, routing_impl=route))
+
+
+def _ep_pipeline_and_compression(mesh) -> str:
+    """The pipeline (one stage) against the plain sequential loop, and the
+    compressed mean against its definition, on CUDA tensors over the one-rank
+    NCCL group: the collectives take them (int8 on the compressed mean's
+    wire).  Returns the log line."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.optim.compression import compressed_mean, quantize_int8
+    from repro_torch.parallel.pipeline import pipeline_apply
+
+    d, n_layers, b, n_micro = (EP_PIPE[k] for k in ("d", "layers", "b", "n_micro"))
+    g = torch.Generator(device="cuda").manual_seed(5)
+    ws = torch.randn(n_layers, d, d, generator=g, device="cuda") / math.sqrt(d)
+    x = torch.randn(b, d, generator=g, device="cuda")
+    pod = init_device_mesh("cuda", (1,), mesh_dim_names=("pod",))
+    w = DTensor.from_local(ws[None], pod, [Shard(0)], run_check=False).requires_grad_()
+    xd = DTensor.from_local(x, pod, [Replicate()], run_check=False).requires_grad_()
+
+    def stage_fn(params, h):
+        for wi in params["w"]:
+            h = torch.tanh(h @ wi)
+        return h
+
+    out = pipeline_apply(stage_fn, {"w": w}, xd, pod, axis="pod", n_micro=n_micro)
+    out.to_local().sum().backward()
+    xr, wr = x.clone().requires_grad_(), ws.clone().requires_grad_()
+    want = stage_fn({"w": wr}, xr)
+    want.sum().backward()
+    pipe = [_hold(f"pipeline {what}", _rel(got, ref), TOL["float32"]) for what, got, ref in (
+        ("output", out.to_local(), want), ("grad x", xd.grad.to_local(), xr.grad),
+        ("grad w", w.grad.to_local()[0], wr.grad))]
+
+    grad = torch.randn(EP_COMP_NUMEL, generator=g, device="cuda")
+    err = torch.randn(EP_COMP_NUMEL, generator=g, device="cuda") * 1e-3
+    mean, new_err = compressed_mean(grad, err, mesh.get_group("data"))
+    corrected = grad + err  # the definition on one rank
+    scale = torch.clamp(corrected.abs().max(), min=1e-12) / 127.0
+    q = torch.clamp(torch.round(corrected / scale), -127, 127).to(torch.int8)
+    q2, scale2 = quantize_int8(q.float() * scale / 1)
+    if not (torch.equal(mean, q2.float() * scale2)
+            and torch.equal(new_err, corrected - q.float() * scale)):
+        raise AssertionError("compressed_mean on one rank differs from its definition")
+    bound = 2 * float(corrected.abs().max()) / 127
+    off = max_err(mean, grad)
+    if off >= bound:
+        raise AssertionError(f"compressed_mean: {off:.3e} from the exact mean, bound {bound:.3e}")
+    return (f"pipeline_apply (1 stage, {n_layers} tanh layers d={d}, b={b}, n_micro={n_micro}) "
+            f"vs the sequential loop: output, grad x, grad w rel {pipe[0]:.2e}, {pipe[1]:.2e}, "
+            f"{pipe[2]:.2e} (tol {TOL['float32']}); compressed_mean of {EP_COMP_NUMEL} f32 "
+            f"(int8 all_to_all_single and all_gather over NCCL) equal to its definition, "
+            f"{off:.3e} from the exact mean (bound 2 amax/127 = {bound:.3e})")
+
+
+def phase_mesh_ep(mesh, families: dict, smi: str) -> dict:
+    """Phase 15: expert parallelism on the (1, 1) NCCL mesh (see the module
+    docstring): (a) f32 parity of both EP routes against "dropping", (b) phase
+    13's bf16 run under both routes, (c) phase 13's train step under
+    ep_gather, (d) the pipeline and the compressed mean."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.steps import init_model
+
+    out = {}
+    t0 = time.perf_counter()
+    arch, layers, prompt, m_len = next(r for r in MESH_FAMILY_RUNS if r[0] == EP_ARCH)
+    cfg = dataclasses.replace(get_config(arch, attention_impl="pallas", dtype="float32"),
+                              n_layers=PARITY_DEPTH)
+    _, params = init_model(cfg, seed=0, max_seq=m_len, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(11)
+    batch = {"tokens": torch.randint(1, cfg.vocab, (MESH_BATCH, prompt), generator=g,
+                                     device="cuda", dtype=torch.int32)}
+    want = _mesh_run(arch, cfg, mesh, params, batch, EP_PARITY_STEPS, m_len)
+    worst = {}
+    for route in EP_ROUTES:
+        run = _mesh_run(arch, _ep_cfg(cfg, route), mesh, params, batch, EP_PARITY_STEPS, m_len,
+                        feed=want["fed"])
+        if run["launches"] != want["launches"]:
+            raise AssertionError(f"mesh-ep f32 {route}: launches {run['launches']}, "
+                                 f"dropping's {want['launches']}")
+        worst[route] = _check_rel(f"mesh-ep f32 {route} logits", run["logits"], want["logits"])
+    tcfg = dataclasses.replace(cfg, attention_impl="xla")  # no kernel has a backward
+    train = {r: _train_run(_ep_cfg(tcfg, r), mesh, 2)["metrics"][0] for r in ("dropping",
+                                                                               "ep_gather")}
+    loss_rel = abs(train["ep_gather"]["loss"] - train["dropping"]["loss"]) / abs(
+        train["dropping"]["loss"])
+    _hold("mesh-ep f32 ep_gather train loss", loss_rel)
+    log("mesh-ep", f"{arch} f32 full width, {PARITY_DEPTH} layer, B={MESH_BATCH}, {prompt}-token "
+        f"prompts + {EP_PARITY_STEPS} steps fed the dropping run's tokens, on the (1, 1) mesh: "
+        f"logits err / max |logit| " + ", ".join(f"{r} {v:.3e}" for r, v in worst.items())
+        + f" (tol {PARITY_REL_TOL}); launches {want['launches']} on every route; one train "
+        f"step (B={MESH_TRAIN_B} S={MESH_TRAIN_S}): loss {train['ep_gather']['loss']:.6f} under "
+        f"ep_gather vs {train['dropping']['loss']:.6f} (rel {loss_rel:.2e}, tol "
+        f"{PARITY_REL_TOL}); {time.perf_counter() - t0:.1f}s with init")
+    del params
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    base = dataclasses.replace(get_config(arch, attention_impl="pallas"), n_layers=layers)
+    _, params = init_model(base, seed=0, max_seq=m_len, device="cuda")  # phase 13's
+    g = torch.Generator(device="cuda").manual_seed(11)
+    batch = {"tokens": torch.randint(1, base.vocab, (MESH_BATCH, prompt), generator=g,
+                                     device="cuda", dtype=torch.int32)}
+    drop = families[arch]
+    k_want = dict.fromkeys(ops.KERNELS, 0)
+    k_want.update(flash_attention=layers, decode_attention=layers * DECODE_STEPS)
+    # the control: dropping again with the model's input nudged at f32
+    # rounding, which flips bf16 roundings as an f32 sum's order does; a
+    # route may drift CHAOS_FACTOR x as far
+    control = _mesh_run(arch, base, mesh, _nudged(params), batch, DECODE_STEPS, m_len,
+                        feed=drop["fed"])
+    dc = _rel(control["logits"], drop["logits"])
+    for route in EP_ROUTES:
+        run = _mesh_run(arch, _ep_cfg(base, route), mesh, params, batch, DECODE_STEPS, m_len,
+                        feed=drop["fed"])
+        if run["launches"] != k_want or drop["launches"] != k_want:
+            raise AssertionError(f"mesh-ep {route}: launches {run['launches']}, dropping's "
+                                 f"{drop['launches']}, want {k_want}")
+        rel = _hold(f"mesh-ep bf16 {route} logits", _rel(run["logits"], drop["logits"]),
+                    max(CHAOS_FACTOR * dc, PARITY_REL_TOL))
+        agree = float((run["tokens"][:, :-1] == drop["fed"][:, 1:]).float().mean())
+        log("mesh-ep", f"{arch} bf16 full width, {layers} layers, B={MESH_BATCH}, {prompt}-token "
+            f"prompts, {DECODE_STEPS} steps fed phase 13's dropping tokens, under {route}: "
+            f"logits err / max |logit| {rel:.3e}, the control's {dc:.3e} (within "
+            f"{CHAOS_FACTOR} x); greedy tokens equal "
+            f"to dropping's at {agree:.4f} of the steps; launches {run['launches']} as "
+            f"dropping's; prefill {run['prefill_ms']:.2f} ms vs {drop['prefill_ms']:.2f}, "
+            f"decode step {run['step_ms']:.2f} ms vs {drop['step_ms']:.2f}; peak "
+            f"{run['peak'] / 2**30:.2f} GiB ({smi})")
+        out[route] = {k: run[k] for k in ("prefill_ms", "step_ms", "peak")}
+        del run
+    del params
+    torch.cuda.empty_cache()
+    log("mesh-ep", f"bf16 runs took {time.perf_counter() - t0:.1f}s with init")
+
+    t0 = time.perf_counter()
+    tarch, tlayers, tsteps = MESH_FAMILY_TRAIN
+    tcfg = _ep_cfg(dataclasses.replace(get_config(tarch), n_layers=tlayers), "ep_gather")
+    run = _train_run(tcfg, mesh, tsteps)
+    ref = families["train"]["metrics"]
+    for i, (m, w) in enumerate(zip(run["metrics"][:1], ref)):
+        for k in ("loss", "aux"):
+            if abs(m[k] - w[k]) > TOL["bfloat16"] * abs(w[k]):
+                raise AssertionError(f"mesh-ep train {k}: {m[k]} under ep_gather, {w[k]} "
+                                     "under dropping")
+    log("mesh-ep", f"{tarch} bf16 full width, {tlayers} layers, B={MESH_TRAIN_B} "
+        f"S={MESH_TRAIN_S}, {tsteps} AdamW steps under ep_gather on the (1, 1) mesh: step-1 "
+        f"loss {run['metrics'][0]['loss']:.5f} vs dropping's {ref[0]['loss']:.5f}, aux "
+        f"{run['metrics'][0]['aux']:.5f} vs {ref[0]['aux']:.5f} (tol {TOL['bfloat16']}); "
+        f"{run['ms']:.2f} ms a step vs dropping's {families['train']['ms']:.2f} ms (step 1 "
+        f"{run['first_ms']:.2f}); peak {run['peak'] / 2**30:.2f} GiB; "
+        f"{time.perf_counter() - t0:.1f}s with init ({smi})")
+    out["train"] = {"ms": run["ms"], "first_ms": run["first_ms"], "peak": run["peak"]}
+    del run
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    log("mesh-ep", _ep_pipeline_and_compression(mesh)
+        + f"; {time.perf_counter() - t0:.1f}s")
     return out
 
 
@@ -4016,8 +4225,11 @@ def _phases(t_start: float, smi: str, proc, mesh_proc) -> int:
         phase_mesh_train(mesh)
         log("mesh-train", f"phase took {time.perf_counter() - t0:.1f}s")
         t0 = time.perf_counter()
-        phase_mesh_families(mesh)
+        families = phase_mesh_families(mesh)
         log("mesh-families", f"phase took {time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
+        phase_mesh_ep(mesh, families, smi)
+        log("mesh-ep", f"phase took {time.perf_counter() - t0:.1f}s")
         t0 = time.perf_counter()
         phase_mesh_dryrun(mesh, _Dryrun(mesh_proc), mesh_out)
         log("mesh-dryrun", f"phase took {time.perf_counter() - t0:.1f}s")

@@ -34,10 +34,8 @@ Differences from the reference:
   count on ``meta`` sees every layer, so every arch is counted directly
   and there is no probe (``scanned_flops_per_dev`` equals
   ``flops_per_dev``, ``collectives_scanned`` equals ``collectives``).
-- ``--perf`` applies the reference's overrides whole.  granite-moe's
-  ``train_4k`` one asks for ``routing_impl="ep_gather"``, expert
-  parallelism, which the port refuses until ROADMAP.md Queue 1 item 5b:
-  that cell then fails with the refusal's message.
+- ``--perf`` applies the reference's overrides whole (granite-moe's
+  ``train_4k`` one runs ``routing_impl="ep_gather"``, ``parallel/ep.py``).
 - The fake group lives in ``torch.testing._internal``; where a torch lacks
   it the dry-run on a mesh raises rather than counting on one device.
 """

@@ -131,14 +131,14 @@ def _gqa_scores(q: torch.Tensor, k: torch.Tensor, n_rep: int, hd: int) -> torch.
     b, sq, hq, d = q.shape
     qg = q.reshape(b, sq, k.shape[2], n_rep, d)
     # the product is in the activation dtype, then scaled in f32, as in JAX
-    return torch.einsum("bqhgd,bkhd->bhgqk", qg, k).float() / math.sqrt(hd)
+    return SH.batch_einsum("bqhgd,bkhd->bhgqk", qg, k).float() / math.sqrt(hd)
 
 
 def _gqa_out(w: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """w: (B,Hkv,G,Sq,Sk), v: (B,Sk,Hkv,D) -> (B,Sq,Hq,D)."""
     b, hkv, g, sq, sk = w.shape
-    out = torch.einsum("bhgqk,bkhd->bqhgd", w, v)
-    return out.reshape(b, sq, hkv * g, out.shape[-1])
+    out = SH.batch_einsum("bhgqk,bkhd->bqhgd", w, v)
+    return SH.pin_grad(out.reshape(b, sq, hkv * g, out.shape[-1]), 2, hkv)
 
 
 def _masked_softmax(scores: torch.Tensor, mask: Optional[torch.Tensor], dtype) -> torch.Tensor:

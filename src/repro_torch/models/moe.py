@@ -16,9 +16,10 @@ Port of ``repro.models.moe``.  Two routing implementations
   same roundings, without the one-hot products.
 
 The expert FFNs are plain batched products, as in the reference (which
-runs them in XLA, outside any Pallas kernel).  The expert-parallel
-implementations (``"ep_shard_map"``, ``"ep_gather"``) wait for ROADMAP.md
-Queue 1 item 5b.
+runs them in XLA, outside any Pallas kernel).  The expert-parallel routes
+(``"ep_shard_map"``, ``"ep_gather"``) are ``parallel/ep.py``'s: they need
+the mesh a step installs, and raise the reference's ``RuntimeError``
+without one.
 
 On a mesh (DTensor params and activations, ``steps.py``) ``"dropping"``
 places the experts over "model" as the reference's GSPMD partitioner does.
@@ -240,10 +241,14 @@ def apply_moe(p: Params, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tens
         out, aux = moe_dense(p, x, cfg)
     elif impl == "dropping":
         out, aux = moe_dropping(p, x, cfg)
-    elif impl in ("ep_shard_map", "ep_gather"):
-        raise NotImplementedError(
-            f"routing_impl={impl!r} is expert parallelism, which waits for ROADMAP.md "
-            "Queue 1 item 5b; the port has 'dense' and 'dropping'")
+    elif impl == "ep_shard_map":
+        from repro_torch.parallel.ep import moe_ep_shard_map
+
+        out, aux = moe_ep_shard_map(p, x, cfg)
+    elif impl == "ep_gather":
+        from repro_torch.parallel.ep import moe_ep_gather
+
+        out, aux = moe_ep_gather(p, x, cfg)
     else:
         raise ValueError(impl)
     if cfg.moe.n_shared_experts:

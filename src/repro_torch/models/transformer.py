@@ -52,6 +52,7 @@ from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models import xlstm as XL
 from repro_torch.models.params import ParamDef, tree_map
+from repro_torch.parallel.ep import current_mesh, ep_mesh
 
 Params = Dict[str, Any]
 
@@ -284,9 +285,14 @@ def forward_train(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tenso
     enc = encoder_output(params, cfg, batch)
     x, positions, tokens = _embed_inputs(params, cfg, batch)
     window = window if cfg.family != "encdec" else 0
+    mesh = current_mesh()
 
     def block(p: Params, h: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        out = _apply_block(p, h, positions, cfg, enc, window=window, train=True)
+        # remat recomputes a block in the backward, which on a card runs on
+        # the autograd engine's device thread: the step's mesh, installed in
+        # this thread (ep_mesh), is installed there again
+        with ep_mesh(mesh):
+            out = _apply_block(p, h, positions, cfg, enc, window=window, train=True)
         return out[0], out[3]
 
     auxs = []

@@ -69,18 +69,21 @@ def mlstm_defs(cfg) -> Params:
     }
 
 
-def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x (B,S,dp) @ w (dp,H,dh) -> (B,S,H,dh), the einsum "bsd,dhk->bshk".
-    On a mesh the product's last dim is first gathered where it is sharded
-    over more ranks than H divides: the split into (H, dh) has no DTensor
-    placement there (4 heads on a "model" axis of 16)."""
-    dp, h, dh = w.shape
-    y = x @ w.reshape(dp, h * dh)
+def _split_heads(y: torch.Tensor, h: int) -> torch.Tensor:
+    """y (B,S,H*dh) -> (B,S,H,dh).  On a mesh its last dim is first gathered
+    where it is sharded over more ranks than H divides: the split into (H,
+    dh) has no DTensor placement there (4 heads on a "model" axis of 16)."""
     if isinstance(y, DTensor):
         mesh = y.device_mesh
         y = SH.relayout(y, [Replicate() if p == Shard(2) and h % mesh.size(i) else p
                             for i, p in enumerate(y.placements)])
-    return y.reshape(*y.shape[:2], h, dh)
+    return y.reshape(*y.shape[:2], h, y.shape[2] // h)
+
+
+def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (B,S,dp) @ w (dp,H,dh) -> (B,S,H,dh), the einsum "bsd,dhk->bshk"."""
+    dp, h, dh = w.shape
+    return _split_heads(x @ w.reshape(dp, h * dh), h)
 
 
 def _mlstm_qkvgates(p: Params, x: torch.Tensor, cfg, conv_state: Optional[torch.Tensor] = None):
@@ -118,13 +121,13 @@ def mlstm_forward(p: Params, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, State]
         torch.full((), float("-inf"), device=x.device), dmat))
     m = torch.clamp(dmat.amax(dim=2, keepdim=True), min=-1e30)  # guard all -inf rows
     dprime = torch.exp(dmat - m)
-    scores = torch.einsum("bihk,bjhk->bijh", q.float(), k.float())
+    scores = SH.batch_einsum("bihk,bjhk->bijh", q.float(), k.float())
     w = scores * dprime
     norm = torch.maximum(w.sum(dim=2).abs(), torch.exp(-m[:, :, 0]))  # (B,S,H)
     # contiguous operands: on a 16 x 16 mesh DTensor hands the einsum's view a
     # re-placed local shard whose strides it cannot view (torch 2.13)
-    y = torch.einsum("bijh,bjhk->bihk", w.contiguous(), v.float().contiguous()) / norm[..., None]
-    y = (y.to(x.dtype) * F.silu(z).reshape(b, s, h, dh)).reshape(b, s, h * dh)
+    y = SH.batch_einsum("bijh,bjhk->bihk", w.contiguous(), v.float().contiguous()) / norm[..., None]
+    y = SH.pin_grad((y.to(x.dtype) * _split_heads(F.silu(z), h)).reshape(b, s, h * dh), 2, h)
     state = _mlstm_state_from_seq(k, v, ig, fg, conv_state)
     return y @ p["w_down"], state
 
@@ -244,7 +247,7 @@ def slstm_forward(p: Params, x: torch.Tensor, cfg, state: Optional[State] = None
     for t in range(s):
         state = _slstm_cell(p, xg[:, t], state)
         hs.append(state["h"])
-    y = torch.stack(hs, dim=1).reshape(b, s, d).to(x.dtype)
+    y = SH.pin_grad(torch.stack(hs, dim=1).reshape(b, s, d), 2, cfg.n_heads).to(x.dtype)
     y = x + y  # residual around the cell
     yn = apply_norm(p["ffn_norm"], y, cfg.norm)
     # jax.nn.gelu defaults to the tanh approximation

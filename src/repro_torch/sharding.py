@@ -356,6 +356,58 @@ def local_call(fn: Callable, in_pl: Sequence[Any], out_pl: Any, *args: DTensor,
                      in_grad_placements=grads, device_mesh=mesh)(*args)
 
 
+class _PinGrad(torch.autograd.Function):
+    """The identity; the backward re-places the grad to the forward's
+    placements where it shards dim ``dim`` over a mesh dim whose size does
+    not divide ``heads``."""
+
+    @staticmethod
+    def forward(ctx, t, dim, heads):
+        ctx.pl, ctx.dim, ctx.heads = tuple(t.placements), dim, heads
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        if any(p == Shard(ctx.dim) and ctx.heads % g.device_mesh.size(i)
+               for i, p in enumerate(g.placements)):
+            g = relayout(g, [Replicate() if p.is_partial() else p for p in ctx.pl])
+        return g, None, None
+
+
+def pin_grad(t: torch.Tensor, dim: int, heads: int) -> torch.Tensor:
+    """``t``, whose grad reaches a backward that splits or merges its dim
+    ``dim`` of ``heads`` heads (a reshape), re-placed in the backward to
+    ``t``'s forward placements where the grad shards ``dim`` over a mesh dim
+    whose size does not divide ``heads``: DTensor has no placement for that
+    split or merge, and raises.  Elsewhere the grad is left as it comes, so
+    that a backward that runs as it is pays nothing.  ``t`` itself for a
+    plain tensor, one with no grad, or one head (MQA: DTensor moves the
+    shard to the other dim of the split)."""
+    if heads == 1 or not isinstance(t, DTensor) or not t.requires_grad:
+        return t
+    return _PinGrad.apply(t, dim, heads)
+
+
+def batch_einsum(eq: str, *ops: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum(eq, *ops)``, every operand and the result batch-first.
+    Where grads flow on a mesh and the batch does not divide the whole mesh,
+    it runs in a ``local_call`` island on each rank's batch rows (over the dp
+    axes where they divide, every other dim whole): the backward of
+    DTensor's einsum shards the product's merged (batch, heads) dim over
+    every rank, which the split back to (batch, heads) cannot undo then
+    (2 x 16 x 16's (32, 16) view, 256 rows over 512 ranks)."""
+    t = ops[0]
+    if not (isinstance(t, DTensor) and torch.is_grad_enabled()
+            and any(o.requires_grad for o in ops) and t.shape[0] % t.device_mesh.size()):
+        return torch.einsum(eq, *ops)
+    mesh = t.device_mesh
+    bt = "dp" if t.shape[0] % dp_size(mesh) == 0 else None
+    out_dims = len(eq.split("->")[1])
+    pl = [kernel_layout(mesh, (bt,) + (None,) * (o.dim() - 1)) for o in ops]
+    return local_call(lambda *xs: torch.einsum(eq, *xs), pl,
+                      kernel_layout(mesh, (bt,) + (None,) * (out_dims - 1)), *ops)
+
+
 def kernel_layout(mesh: Any, spec: Sequence[Any]) -> Tuple[Placement, ...]:
     """Placements of a kernel operand: ``spec``'s entries, with "dp" standing
     for the mesh's data-parallel axes."""

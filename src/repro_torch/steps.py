@@ -22,8 +22,9 @@ optimizer state placed by ``in_shardings`` (the moments by
 data-parallel axes, and returns them placed by ``out_shardings``, with its
 0-d metrics as full tensors.  Every family runs on a mesh, the production
 mesh (``launch/mesh.py::make_production_mesh``) included, where the dry-run
-counts a step as one rank of a fake group sees it (``launch/dryrun.py``);
-the expert-parallel MoE routes wait for ROADMAP.md Queue 1 item 5b.
+counts a step as one rank of a fake group sees it (``launch/dryrun.py``),
+and the installed mesh carries the expert-parallel MoE routes
+(``parallel/ep.py``).
 """
 from __future__ import annotations
 

@@ -370,17 +370,32 @@ def test_hymba_prefill_on_meta_reaches_k3_under_the_perf_override():
 
 
 def test_granite_train_cell_under_perf_fails_naming_item_5(monkeypatch, capsys, tmp_path):
+    """The reference's perf override of granite-moe's ``train_4k``
+    (``ep_gather`` with 48 padded experts, blockwise attention partitioned
+    over the sequence), which the port refused until expert parallelism was
+    ported, now counts on ``meta``: granite-moe-smoke under it on a fake (2,
+    4) group, whose "model" divides the 48 experts, with one reduction over
+    "model" of the MoE's output a layer; then the CLI with ``--perf`` on the
+    16 x 16 mesh (the smoke config at a cut shape) exits 0 and writes its
+    record."""
+    from torch.distributed.device_mesh import init_device_mesh
+
     over = TDRY._perf_overrides()[("granite-moe-3b-a800m", "train_4k")]
-    assert over["moe"].routing_impl == "ep_gather"
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        TDRY.run_cell("granite-moe-3b-a800m", "train_4k", overrides=over, verbose=False)
+    assert over["moe"].routing_impl == "ep_gather" and over["moe"].e_pad == 48
+    cfg = TC.get_smoke_config("granite-moe-3b-a800m", **over)
+    with TDRY.fake_world(8):
+        mesh = init_device_mesh("cpu", (2, 4), mesh_dim_names=("data", "model"))
+        cost = TDRY.count_cell(cfg, TC.ShapeConfig("train_4k", 32, 4, "train"), mesh)
+    assert cost.flops > 0 and cost.collectives()["counts"].get("all-reduce", 0) >= cfg.n_layers
+    monkeypatch.setattr(TDRY, "get_config", TC.get_smoke_config)
+    monkeypatch.setitem(TDRY.SHAPES, "train_4k", TC.ShapeConfig("train_4k", 32, 16, "train"))
     monkeypatch.setattr(sys, "argv", ["dryrun", "--arch", "granite-moe-3b-a800m", "--shape",
                                       "train_4k", "--perf", "--out", str(tmp_path)])
-    with pytest.raises(SystemExit) as exc:
-        TDRY.main()
-    assert exc.value.code == 1
-    assert "Queue 1 item 5" in capsys.readouterr().out
-    assert os.listdir(tmp_path) == []
+    TDRY.main()
+    assert "ALL DRY-RUN CELLS OK" in capsys.readouterr().out
+    with open(tmp_path / "single" / "granite-moe-3b-a800m__train_4k.json") as f:
+        rec = json.load(f)
+    assert rec["mesh"] == "16x16" and rec["n_chips"] == 256 and rec["flops_per_dev"] > 0
 
 
 # -- the one-device record, in a subprocess --------------------------------------------------

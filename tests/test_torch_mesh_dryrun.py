@@ -511,5 +511,65 @@ def test_cli_both_meshes_and_strategy(tmp_path):
     assert fsdp["argument_size_in_bytes"] < tp["argument_size_in_bytes"]
 
 
+# The smallest train counts on 2 x 16 x 16's (32, 16) ``tp`` view (the archs'
+# own head counts, depth and sequence cut, B = 256 as in train_4k) that raised
+# in DTensor's backward before the repair: (arch, layers, seq) and what raised.
+# The (batch, heads) dim of an einsum's batched product was sharded over all
+# 512 ranks, 256 rows over 512, and could not be split back (hymba, xlstm at
+# 256 tokens; ``sharding.batch_einsum``); a grad sharded over more ranks than
+# the heads it splits into (granite-3-8b's 8 kv heads, xlstm's 4; whisper's 20
+# heads; ``sharding.pin_grad`` and ``xlstm._split_heads``; xlstm's sLSTM merge
+# raised only once its gate's split was mended).
+POD_FAULTS = {
+    "hymba-1.5b": (2, 512),  # shape '[1, 5, 512, 5, 512, 1]' is invalid
+    "xlstm-125m-einsum": (1, 256),  # shape '[1, 4, 256, 256, 1]' is invalid
+    "xlstm-125m-gate": (1, 16),  # Cannot unflatten: output dimension 0 (size 4)
+    "xlstm-125m-slstm": (4, 64),  # the same, at the sLSTM's (H, dh) merge (layer 4)
+    "granite-3-8b": (2, 64),  # Cannot unflatten: output dimension 0 (size 8)
+    "whisper-large-v3": (2, 16),  # Cannot flatten: dimension 3 (size 20)
+}
+
+
+def _cut_cell(arch: str, layers: int, seq: int, mesh):
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.launch.dryrun import count_cell
+
+    cfg = get_config(arch, n_layers=layers, **({"n_enc_layers": layers}
+                                                if arch == "whisper-large-v3" else {}))
+    return count_cell(cfg, ShapeConfig("train_4k", seq, 256, "train"), mesh)
+
+
+@pytest.mark.parametrize("case", list(POD_FAULTS))
+def test_train_counts_on_the_pod_mesh_where_dtensor_raised(case):
+    from repro_torch.launch.dryrun import fake_world, tp_view
+    from repro_torch.launch.mesh import make_production_mesh
+
+    arch = "xlstm-125m" if case.startswith("xlstm") else case
+    with fake_world(512):
+        mesh = tp_view(make_production_mesh(multi_pod=True, device="cpu"))
+        cost = _cut_cell(arch, *POD_FAULTS[case], mesh)
+    coll = cost.collectives()
+    assert cost.flops > 0 and coll["total_operand"] > 0
+    assert coll["counts"].get("all-reduce", 0) + coll["counts"].get("reduce-scatter", 0) > 0
+
+
+@pytest.mark.parametrize("arch,layers,seq", [("granite-3-8b", 2, 64), ("whisper-large-v3", 2, 16),
+                                            ("hymba-1.5b", 2, 64)])
+def test_the_pod_mesh_repair_leaves_16x16_counts_as_they_were(arch, layers, seq, monkeypatch):
+    """On 16 x 16 the repair's grad pins and batch islands change nothing:
+    the count with them equals the count with both replaced by the plain
+    ops they wrap."""
+    from repro_torch import sharding as SH
+    from repro_torch.launch.dryrun import fake_world
+    from repro_torch.launch.mesh import make_production_mesh
+
+    with fake_world(256):
+        mesh = make_production_mesh(device="cpu")
+        with_repair = summary(_cut_cell(arch, layers, seq, mesh))
+        monkeypatch.setattr(SH, "pin_grad", lambda t, dim, heads: t)
+        monkeypatch.setattr(SH, "batch_einsum", lambda eq, *ops: torch.einsum(eq, *ops))
+        without = summary(_cut_cell(arch, layers, seq, mesh))
+    assert with_repair == without
+
 if __name__ == "__main__":
     _main(sys.argv[1])

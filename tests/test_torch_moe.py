@@ -201,7 +201,11 @@ def test_shared_experts_match_jax():
 
 @pytest.mark.parametrize("impl", ["ep_shard_map", "ep_gather"])
 def test_expert_parallel_impls_raise(impl):
+    """With no ``ep_mesh`` installed both expert-parallel routes raise the
+    reference's ``RuntimeError`` (``repro/parallel/ep.py``): there is no
+    fallback to ``"dropping"``.  ``tests/test_torch_parallel.py`` runs them
+    on a mesh."""
     _, tcfg = _cfgs(moe=dict(routing_impl=impl))
     p = TP.init_params(TMOE.moe_defs(tcfg), torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    with pytest.raises(RuntimeError, match=f"{impl} requires ep_mesh"):
         TMOE.apply_moe(p, torch.zeros(1, 4, tcfg.d_model), tcfg)
